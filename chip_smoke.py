@@ -8,9 +8,14 @@ the kernels are built for sm_90a).  It
 
 1. builds the port's CUDA kernels from ``gigapaxos_tpu_torch/csrc``;
 2. kernels phase: holds each hand-written kernel against its plain PyTorch
-   version at every shape class the tick gives it (exact equality), and
-   times the kernel, the plain version and, for the gather, ``torch.gather``
-   (a yardstick the port never calls) with CUDA events;
+   version on small edge cases (ragged G, unaligned views, out-of-range
+   indices, 1..8 arrays a launch) and at every shape the tick gives it:
+   the one-array classes and the five gather sets and one match set that
+   share an index, with inputs shaped as the tick makes them (exact
+   equality).  It times each case with CUDA events, with the L2 cache
+   flushed before every timed launch: one fused launch, one launch per
+   array, the plain version and, for the gather, ``torch.gather`` per
+   array (a yardstick the port never calls);
 3. tick phase: the fused tick at R=3, W=8, P=4, G=2^20 with bench.py's
    load (one fresh request per group per tick), compact outbox; checks the
    kernel launch counts, that every taken request executes exactly once
@@ -75,13 +80,31 @@ def bandwidth_of(name: str) -> float:
     return BANDWIDTH[-1][1]
 
 
-def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn`` (CUDA events)."""
+class L2Flush:
+    """Empties the card's L2 cache (50 MB on an H100) between timed
+    launches, so that an input under 50 MB is read from device memory as it
+    is in the tick.  It writes a 256 MB scratch buffer, then reads another,
+    which writes the dirty lines back before the timed launch starts."""
+
+    def __init__(self, torch, dev, nbytes: int = 256 << 20):
+        self.dirty = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        self.clean = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+
+    def __call__(self):
+        self.dirty.fill_(1)
+        self.clean.max()
+
+
+def time_ms(torch, fn, reps: int, flush=None, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn`` (CUDA events), with
+    ``flush()`` run outside the events before each timed call."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
+        if flush is not None:
+            flush()
         s.record()
         fn()
         e.record()
@@ -91,85 +114,215 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
 
 # ------------------------------------------------------------ kernels phase
 
+class Case:
+    """One kernel call: ``arrs`` (the gather's arrays or the match's vals)
+    with a shared ``idx`` (and ``keys`` for the match)."""
+
+    def __init__(self, name, label, arrs, idx, keys=None, tick_set=None):
+        self.name, self.label, self.tick_set = name, label, tick_set
+        self.arrs, self.idx, self.keys = tuple(arrs), idx, keys
+
+    def fused(self, pg):
+        if self.name == "gather_planes":
+            return pg.gather_planes_many_cuda(self.arrs, self.idx)
+        return pg.match_planes_many_cuda(self.arrs, self.keys, self.idx)
+
+    def per_array(self, pg):
+        if self.name == "gather_planes":
+            return [pg.gather_planes_cuda(a, self.idx) for a in self.arrs]
+        return [pg.match_planes_cuda(a, self.keys, self.idx)
+                for a in self.arrs]
+
+    def plain(self, pg):
+        if self.name == "gather_planes":
+            return pg.gather_planes_many_plain(self.arrs, self.idx)
+        return pg.match_planes_many_plain(self.arrs, self.keys, self.idx)
+
+    def inputs(self):
+        return (*self.arrs, self.idx) + ((self.keys,) if self.keys is not None
+                                         else ())
+
+
 def kernel_cases(torch, dev, R, W, P, G):
-    """Seeded inputs at every shape class the tick gives the kernels."""
+    """Seeded inputs at every shape the tick gives the kernels: the
+    one-array classes (random indices), then the five gather sets and the
+    match set of one tick, each array and index shaped and made as the tick
+    makes them (ring indices are rotations ``(base + j) & (W-1)``)."""
     gen = torch.Generator(device="cpu").manual_seed(1234)
 
-    def ints(shape, lo, hi):
+    def ints(shape, lo=-2**31, hi=2**31 - 1):
         return torch.randint(lo, hi, shape, generator=gen,
                              dtype=torch.int32).to(dev)
 
     def bools(shape):
         return (torch.rand(shape, generator=gen) < 0.5).to(dev)
 
+    def rotation(base, sign=1):  # [..., G] -> [..., W, G]
+        jw = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
+        return torch.bitwise_and(sign * jw + base.unsqueeze(-2), W - 1)
+
     cases = []
     for dtype in ("int32", "bool"):
-        mk = ((lambda s: ints(s, -2**31, 2**31 - 1)) if dtype == "int32"
-              else bools)
-        cases.append(("gather_planes", f"[{R},{W},G] shared idx {dtype}",
-                      (mk((R, W, G)), ints((W, G), 0, W))))
-        cases.append(("gather_planes", f"[{W},G] lead 1 {dtype}",
-                      (mk((W, G)), ints((W, G), 0, W))))
-        cases.append(("gather_planes", f"[{R},{W},G] per-lead idx {dtype}",
-                      (mk((R, W, G)), ints((R, W, G), 0, W))))
+        mk = ints if dtype == "int32" else bools
+        cases.append(Case("gather_planes", f"[{R},{W},G] shared idx {dtype}",
+                          [mk((R, W, G))], ints((W, G), 0, W)))
+        cases.append(Case("gather_planes", f"[{W},G] lead 1 {dtype}",
+                          [mk((W, G))], ints((W, G), 0, W)))
+        cases.append(Case("gather_planes", f"[{R},{W},G] per-lead idx {dtype}",
+                          [mk((R, W, G))], ints((R, W, G), 0, W)))
     E = R * P
     # intake keys as the tick makes them: ranks of taken entries, -1 holes
     keys = torch.where(bools((E, G)), ints((E, G), 0, E), -1)
     idx = ints((W, G), 0, W)
-    cases.append(("match_planes", f"[{E},G] int32",
-                  (ints((E, G), 1, 2**31 - 1), keys, idx)))
-    cases.append(("match_planes", f"[{E},G] bool", (bools((E, G)), keys, idx)))
+    cases.append(Case("match_planes", f"[{E},G] int32",
+                      [ints((E, G), 1, 2**31 - 1)], idx, keys))
+    cases.append(Case("match_planes", f"[{E},G] bool", [bools((E, G))], idx,
+                      keys))
+
+    rwg, wg = (R, W, G), (W, G)
+    base = ints((G,), 0, 2**30)
+    i_j = rotation(base)               # ring index of window offset j
+    j_of_i = rotation(-base)           # window offset of ring plane i
+    i_own = rotation(ints((R, G), 0, 2**30))
+    sets = [
+        ("S1", "phase 1", [ints(rwg) for _ in range(4)] + [bools(rwg)], i_j),
+        ("S2", "carryover to_ring", [ints(wg), ints(wg), bools(wg),
+                                     bools(wg)], j_of_i),
+        ("S3", "tally", [ints(rwg) for _ in range(5)]
+         + [bools(rwg), bools(rwg)], i_j),
+        ("S4", "decisions to_ring", [ints(wg), bools(wg), bools(wg)], j_of_i),
+        ("S5", "execution per-lead", [ints(rwg), ints(rwg), bools(rwg),
+                                      bools(rwg)], i_own),
+    ]
+    for tag, what, arrs, ix in sets:
+        shape = "x".join(str(d) for d in arrs[0].shape[:-1])
+        cases.append(Case("gather_planes",
+                          f"{tag} {what} {len(arrs)}x[{shape},G]", arrs, ix,
+                          tick_set=tag))
+    ji = rotation(-ints((G,), 0, 2**30))
+    cases.append(Case("match_planes", f"M intake 2x[{E},G]",
+                      [ints((E, G), 1, 2**31 - 1), bools((E, G))], ji, keys,
+                      tick_set="M"))
     return cases
+
+
+def edge_cases(torch, pg, dev):
+    """Every kernel path at small sizes against the plain version: ragged G
+    (scalar lanes), a contiguous view with a storage offset (unaligned, so
+    scalar lanes), indices out of [0, Wp), Wp and J beyond the kernel's
+    register chunks, and 1..8 gather arrays (1..4 match arrays) a launch,
+    int32 and bool mixed.  Returns the number of calls checked."""
+    gen = torch.Generator(device="cpu").manual_seed(99)
+
+    def mk(shape, dtype, lo=-999, hi=999, offset=False):
+        src = (torch.randint(0, 2, shape, generator=gen).bool()
+               if dtype == torch.bool else
+               torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32))
+        if offset:
+            n = src.numel()
+            return torch.empty(n + 1, dtype=dtype, device=dev)[1:].view(
+                shape).copy_(src)
+        return src.to(dev)
+
+    def same(got, want, what):
+        check(len(got) == len(want), f"{what}: output count")
+        for a, b in zip(got, want):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"{what}: kernel != plain")
+
+    n = 0
+    for g in (1, 3, 130, 4099, 4096):
+        for lead, wp, j in (((3,), 8, 8), ((), 12, 8), ((2, 3), 32, 12)):
+            for k in range(1, 9):
+                dts = [(torch.int32, torch.bool)[(i + k) % 2]
+                       for i in range(k)]
+                for perlead in (False, True):
+                    arrs = [mk(lead + (wp, g), d, offset=i == 0 and g == 4096)
+                            for i, d in enumerate(dts)]
+                    idx = mk((lead if perlead else ()) + (j, g), torch.int32,
+                             -2, wp + 3)
+                    same(pg.gather_planes_many_cuda(arrs, idx),
+                         pg.gather_planes_many_plain(arrs, idx),
+                         f"gather g={g} lead={lead} wp={wp} k={k}")
+                    n += 1
+        for e, j in ((12, 8), (20, 32)):
+            for k in range(1, 5):
+                dts = [(torch.int32, torch.bool)[(i + k) % 2]
+                       for i in range(k)]
+                vals = [mk((e, g), d, offset=i == 0 and g == 4096)
+                        for i, d in enumerate(dts)]
+                keys = mk((e, g), torch.int32, -1, e // 2)
+                idx = mk((j, g), torch.int32, -1, e)
+                same(pg.match_planes_many_cuda(vals, keys, idx),
+                     pg.match_planes_many_plain(vals, keys, idx),
+                     f"match g={g} e={e} k={k}")
+                n += 1
+    torch.cuda.synchronize()
+    return n
 
 
 def path_launches(pg, path: str, n_ticks: int) -> dict:
     """Read the launch counts of one main-path run (set to 0 just before
-    it): every tick launches 24 gathers and 2 matches."""
+    it): every tick launches 5 gathers (one per set of arrays that share an
+    index) and 1 match."""
     got = dict(pg.launches)
-    check(got == {"gather_planes": 24 * n_ticks, "match_planes": 2 * n_ticks},
+    check(got == {"gather_planes": 5 * n_ticks, "match_planes": n_ticks},
           f"{path} phase: launches over {n_ticks} ticks: {got}")
     return got
 
 
 def kernels_phase(torch, pg, dev, R, W, P, G, bw):
+    flush = L2Flush(torch, dev)
     rows = []
-    for name, label, args in kernel_cases(torch, dev, R, W, P, G):
-        kern = getattr(pg, f"{name}_cuda")
-        plain = getattr(pg, f"{name}_plain")
-        got = kern(*args)
-        want = plain(*args)
+    for c in kernel_cases(torch, dev, R, W, P, G):
+        what = f"{c.name} {c.label}"
+        got = c.fused(pg)
+        want = c.plain(pg)
+        singles = c.per_array(pg)
         torch.cuda.synchronize()
-        check(got.dtype == want.dtype and got.shape == want.shape,
-              f"{name} {label}: dtype/shape differ")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        check(torch.equal(got, want),
-              f"{name} {label}: kernel != plain (max abs err {err})")
-        ms = time_ms(torch, lambda: kern(*args), reps=50)
-        plain_ms = time_ms(torch, lambda: plain(*args), reps=10)
+        err = 0
+        for a, b, s1 in zip(got, want, singles):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"{what}: dtype/shape differ")
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                               .abs().max()))
+            check(torch.equal(a, b), f"{what}: kernel != plain "
+                                     f"(max abs err {err})")
+            check(torch.equal(s1, b), f"{what}: one-array launch != plain")
+        ms = time_ms(torch, lambda: c.fused(pg), reps=50, flush=flush)
+        k_ms = time_ms(torch, lambda: c.per_array(pg), reps=50, flush=flush)
+        plain_ms = time_ms(torch, lambda: c.plain(pg), reps=10, flush=flush)
         lib_ms = None
-        if name == "gather_planes":
-            arr, idx = args
-            idx64 = idx.to(torch.int64).expand(arr.shape[:-2] + idx.shape[-2:])
-            lib_out = torch.gather(arr, -2, idx64)
-            check(torch.equal(lib_out, want), f"torch.gather {label} differs")
-            lib_ms = time_ms(torch, lambda: torch.gather(arr, -2, idx64),
-                             reps=50)
-        # each input read once, the output written once; a compare and a
-        # select for each plane (Wp of arr, E of vals) per output element
-        nbytes = sum(a.numel() * a.element_size() for a in (*args, got))
-        ops = 2 * args[0].shape[-2] * got.numel()
+        if c.name == "gather_planes":
+            idx64 = c.idx.to(torch.int64).expand(
+                c.arrs[0].shape[:-2] + c.idx.shape[-2:])
+            for a, b in zip(c.arrs, want):
+                check(torch.equal(torch.gather(a, -2, idx64), b),
+                      f"torch.gather {c.label} differs")
+            lib_ms = time_ms(torch, lambda: [torch.gather(a, -2, idx64)
+                                             for a in c.arrs],
+                             reps=50, flush=flush)
+        # each input (the shared index once) read once, each output written
+        # once; a compare and a select for each plane (Wp of arr, E of
+        # vals) per output element
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*c.inputs(), *got))
+        ops = sum(2 * c.arrs[0].shape[-2] * o.numel() for o in got)
         t_bytes, t_ops = nbytes / bw * 1e3, ops / INT32_OPS * 1e3
+        bound = max(t_bytes, t_ops)
         rows.append({
-            "name": name, "case": label, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
-            "bound_ms": max(t_bytes, t_ops),
+            "name": c.name, "case": c.label, "set": c.tick_set,
+            "arrays": len(c.arrs), "max_abs_err": err, "ms": ms,
+            "k_launch_ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bytes": nbytes, "bound_ms": bound, "bound_share": bound / ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         })
-        print(f"kernel {name:13s} {label:28s} equal=True err={err} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        print(f"kernel {c.name:13s} {c.label:34s} equal=True err={err} "
+              f"ms={ms:.4f} k_launch_ms={k_ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={rows[-1]['bound_ms']:.4f} "
+              f"bound_ms={bound:.4f} share={bound / ms:.2f} "
               f"({nbytes / 1e6:.1f} MB)", flush=True)
+    del flush
     return rows
 
 
@@ -532,6 +685,8 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas: {line.strip()}")
+        print(f"edge cases: {edge_cases(torch, pg, dev)} calls equal to "
+              "the plain versions", flush=True)
         rows = kernels_phase(torch, pg, dev, R, W, P, G, bw)
         # each main path runs with the counts set to 0 just before it
         pg.reset_launches()
@@ -560,9 +715,8 @@ def main(argv=None) -> int:
     kernels = []
     for name in ("gather_planes", "match_planes"):
         mine = [r for r in rows if r["name"] == name]
-        # the JSON row of a kernel is its largest int32 case on the path
-        head = max((r for r in mine if "int32" in r["case"]),
-                   key=lambda r: r["bytes"])
+        # the JSON row of a kernel is its largest launch on the tick's path
+        head = max((r for r in mine if r["set"]), key=lambda r: r["bytes"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "gigapaxos_tpu_torch/csrc/plane_gather.cu",
@@ -573,9 +727,12 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            # the gather's yardstick: one torch.gather per array of the set
             "library_ms": head["library_ms"], "case": head["case"],
-            "cases": [{k: r[k] for k in ("case", "ms", "plain_ms",
-                                         "library_ms", "bound_ms")}
+            "cases": [{k: r[k] for k in ("case", "arrays", "ms",
+                                         "k_launch_ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_share")}
                       for r in mine],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

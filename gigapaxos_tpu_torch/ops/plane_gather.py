@@ -5,16 +5,20 @@ Counterpart of the reference's ``ops/pallas_gather.py``.  The kernels are
 hand-written CUDA C++ for Hopper (``csrc/plane_gather.cu``, built by
 ``ops/cuda_build.py``):
 
-* :func:`gather_planes` — ``out[l, j, g] = arr[l, idx[(l,) j, g], g]``,
-  the ring-window plane gather (24 launches per tick);
-* :func:`match_planes` — ``out[j, g] = vals[e, g]`` for the ``e`` with
-  ``keys[e, g] == idx[j, g]`` (highest ``e`` wins), else 0: the intake
-  key-match select (2 launches per tick).
+* :func:`gather_planes_many_cuda` — ``out_k[l, j, g] = arr_k[l, idx[(l,)
+  j, g], g]`` for up to 8 arrays that share one index, in one launch: the
+  ring-window plane gather (5 launches per tick);
+* :func:`match_planes_many_cuda` — ``out_k[j, g] = vals_k[e, g]`` for the
+  ``e`` with ``keys[e, g] == idx[j, g]`` (highest ``e`` wins), else 0, for
+  up to 4 vals arrays that share keys and index: the intake key-match
+  select (1 launch per tick).
 
-``ops/window.py`` dispatches on the tensor's device: CPU tensors go to the
-plain PyTorch version (a select chain over the planes), CUDA tensors to the
-kernel wrapper, which launches or raises.  There is no fallback between
-the two.  Each launch adds one to ``launches[name]``.
+:func:`gather_planes_cuda` and :func:`match_planes_cuda` are their one-array
+case.  ``ops/window.py`` dispatches on the tensor's device: CPU tensors go
+to the plain PyTorch versions (a select chain over the planes, one array
+at a time), CUDA tensors to the kernel wrapper, which launches or raises.
+There is no fallback between the two.  Each launch adds one to
+``launches[name]``, however many arrays it carries.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Sequence, Tuple
 
 import torch
 
@@ -33,9 +38,15 @@ launches = {"gather_planes": 0, "match_planes": 0}
 #: element size in bytes of each dtype the kernels take
 KERNEL_DTYPES = {torch.int32: 4, torch.bool: 1}
 
-#: register budget of one thread: plane values (gather) and wanted keys
-#: (match) it keeps at once
+#: most plane (gather) or output-row (match) count the kernels take
 MAX_PLANES = 32
+#: most arrays one gather launch takes, and vals arrays one match launch
+MAX_GATHER, MAX_MATCH = 8, 4
+#: lanes a kernel thread moves at once (a 16-byte int32 vector)
+LANES_PER_THREAD = 4
+#: most lanes the kernels take (the gather's offsets within one leading
+#: index stay in int32)
+MAX_LANES = (2**31 - 1) // MAX_PLANES
 
 
 def reset_launches() -> None:
@@ -49,9 +60,12 @@ def _lib():
     stream as ``c_void_p``, so ctypes never truncates them)."""
     lib = cuda_build.library("plane_gather")
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.gp_gather_planes.argtypes = [p, p, p, i64, i32, i32, i64, i32, i32, p]
+    pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+    lib.gp_gather_planes.argtypes = [pp, pp, ip, i32, p, i64, i32, i32, i64,
+                                     i32, i32, p]
     lib.gp_gather_planes.restype = i32
-    lib.gp_match_planes.argtypes = [p, p, p, p, i32, i32, i64, i32, p]
+    lib.gp_match_planes.argtypes = [pp, pp, ip, i32, p, p, i32, i32, i64,
+                                    i32, p]
     lib.gp_match_planes.restype = i32
     return lib
 
@@ -66,6 +80,48 @@ def _check(t: torch.Tensor, what: str, dev: torch.device, dtypes) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
+def _arrays(arrs: Sequence[torch.Tensor], what: str, most: int,
+            dev_of: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``arrs`` as a tuple of 1..``most`` contiguous int32/bool tensors of one
+    shape on one CUDA device; raises on anything else."""
+    arrs = tuple(arrs)
+    if not 1 <= len(arrs) <= most:
+        raise ValueError(f"{len(arrs)} {what} arrays; one launch takes "
+                         f"1 to {most}")
+    dev = dev_of.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels need CUDA tensors, got {dev}")
+    for n, a in enumerate(arrs):
+        _check(a, f"{what}[{n}]", dev, KERNEL_DTYPES)
+        if a.shape != arrs[0].shape:
+            raise ValueError(f"{what}[{n}] has shape {tuple(a.shape)}, "
+                             f"{what}[0] {tuple(arrs[0].shape)}: one launch "
+                             "takes arrays of one shape")
+    return arrs
+
+
+def _vec_ok(g: int, tensors) -> bool:
+    """Whether every row of every tensor starts on a whole lane quad (16
+    bytes of int32, 4 of bool), so the kernel may move quads as vectors."""
+    return g % LANES_PER_THREAD == 0 and all(
+        t.data_ptr() % (t.element_size() * LANES_PER_THREAD) == 0
+        for t in tensors)
+
+
+def _launch(fn, name: str, arrs, outs, *args) -> None:
+    k = len(arrs)
+    ins = (ctypes.c_void_p * k)(*(a.data_ptr() for a in arrs))
+    ous = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
+    elem = (ctypes.c_int * k)(*(KERNEL_DTYPES[a.dtype] for a in arrs))
+    dev = outs[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ins, ous, elem, k, *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"gp_{name} launch failed (code {rc})")
+    launches[name] += 1
+
+
 # ----------------------------------------------------------- gather_planes
 
 def gather_planes_plain(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,14 +134,23 @@ def gather_planes_plain(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return res
 
 
-def gather_planes_cuda(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch ``gp_gather_planes``.  ``idx`` is ``[J, G]`` (shared by every
-    leading index of ``arr``) or ``arr.shape[:-2] + (J, G)`` (per lead)."""
-    dev = arr.device
-    if dev.type != "cuda":
-        raise ValueError(f"gather_planes_cuda needs CUDA tensors, got {dev}")
-    _check(arr, "arr", dev, KERNEL_DTYPES)
+def gather_planes_many_plain(arrs: Sequence[torch.Tensor],
+                             idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the fused gather: :func:`gather_planes_plain` of
+    each array."""
+    return tuple(gather_planes_plain(a, idx) for a in arrs)
+
+
+def gather_planes_many_cuda(arrs: Sequence[torch.Tensor],
+                            idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Launch ``gp_gather_planes`` once for 1..8 arrays of one shape
+    ``[..., Wp, G]`` (int32 or bool, mixed) that share ``idx``: ``[J, G]``
+    (shared by every leading index) or ``arr.shape[:-2] + (J, G)`` (per
+    lead).  Returns one ``[..., J, G]`` output per array."""
+    arrs = _arrays(arrs, "arrs", MAX_GATHER, idx)
+    dev = idx.device
     _check(idx, "idx", dev, (torch.int32,))
+    arr = arrs[0]
     if arr.dim() < 2 or idx.dim() < 2:
         raise ValueError("arr and idx need a plane and a lane axis")
     lead_shape = tuple(arr.shape[:-2])
@@ -100,21 +165,22 @@ def gather_planes_cuda(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(f"idx shape {tuple(idx.shape)} is neither [J, G] "
                          f"nor {lead_shape} + [J, G]")
-    lead = math.prod(lead_shape)
-    if not 1 <= wp <= MAX_PLANES or lead > 65535:
-        raise ValueError(f"unsupported shape: Wp={wp}, lead={lead}")
-    out = torch.empty(lead_shape + (j, g), dtype=arr.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().gp_gather_planes(
-            arr.data_ptr(), idx.data_ptr(), out.data_ptr(), lead, wp, j, g,
-            perlead, KERNEL_DTYPES[arr.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"gp_gather_planes launch failed (code {rc})")
-    launches["gather_planes"] += 1
-    return out
+    if not 1 <= wp <= MAX_PLANES or g > MAX_LANES:
+        raise ValueError(f"unsupported shape: Wp={wp}, G={g}")
+    outs = tuple(torch.empty(lead_shape + (j, g), dtype=a.dtype, device=dev)
+                 for a in arrs)
+    if outs[0].numel() == 0:
+        return outs
+    vec = _vec_ok(g, (*arrs, *outs, idx))
+    _launch(_lib().gp_gather_planes, "gather_planes", arrs, outs,
+            idx.data_ptr(), math.prod(lead_shape), wp, j, g, perlead,
+            int(vec))
+    return outs
+
+
+def gather_planes_cuda(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The one-array case of :func:`gather_planes_many_cuda`."""
+    return gather_planes_many_cuda((arr,), idx)[0]
 
 
 # ------------------------------------------------------------ match_planes
@@ -130,16 +196,25 @@ def match_planes_plain(vals: torch.Tensor, keys: torch.Tensor,
     return res
 
 
-def match_planes_cuda(vals: torch.Tensor, keys: torch.Tensor,
-                      idx: torch.Tensor) -> torch.Tensor:
-    """Launch ``gp_match_planes``: ``vals``/``keys`` ``[E, G]``, ``idx``
-    ``[J, G]`` with J <= 32 -> ``[J, G]``."""
-    dev = vals.device
-    if dev.type != "cuda":
-        raise ValueError(f"match_planes_cuda needs CUDA tensors, got {dev}")
-    _check(vals, "vals", dev, KERNEL_DTYPES)
+def match_planes_many_plain(vals_list: Sequence[torch.Tensor],
+                            keys: torch.Tensor,
+                            idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the fused match: :func:`match_planes_plain` of each
+    vals array."""
+    return tuple(match_planes_plain(v, keys, idx) for v in vals_list)
+
+
+def match_planes_many_cuda(vals_list: Sequence[torch.Tensor],
+                           keys: torch.Tensor,
+                           idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Launch ``gp_match_planes`` once for 1..4 vals arrays ``[E, G]``
+    (int32 or bool, mixed) that share ``keys`` ``[E, G]`` and ``idx``
+    ``[J, G]`` with J <= 32.  Returns one ``[J, G]`` output per array."""
+    vals_list = _arrays(vals_list, "vals", MAX_MATCH, idx)
+    dev = idx.device
     _check(keys, "keys", dev, (torch.int32,))
     _check(idx, "idx", dev, (torch.int32,))
+    vals = vals_list[0]
     if vals.dim() != 2 or keys.shape != vals.shape or idx.dim() != 2:
         raise ValueError(f"shapes vals {tuple(vals.shape)}, keys "
                          f"{tuple(keys.shape)}, idx {tuple(idx.shape)}: "
@@ -148,17 +223,21 @@ def match_planes_cuda(vals: torch.Tensor, keys: torch.Tensor,
     j = idx.shape[0]
     if idx.shape[1] != g or not 1 <= j <= MAX_PLANES:
         raise ValueError(f"unsupported idx shape {tuple(idx.shape)}")
-    out = torch.empty((j, g), dtype=vals.dtype, device=dev)
-    if out.numel() == 0:
-        return out
+    if g > MAX_LANES:
+        raise ValueError(f"unsupported lane count G={g}")
+    outs = tuple(torch.empty((j, g), dtype=v.dtype, device=dev)
+                 for v in vals_list)
+    if outs[0].numel() == 0:
+        return outs
     if e == 0:
-        return out.zero_()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().gp_match_planes(
-            vals.data_ptr(), keys.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            e, j, g, KERNEL_DTYPES[vals.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"gp_match_planes launch failed (code {rc})")
-    launches["match_planes"] += 1
-    return out
+        return tuple(o.zero_() for o in outs)
+    vec = _vec_ok(g, (*vals_list, *outs, keys, idx))
+    _launch(_lib().gp_match_planes, "match_planes", vals_list, outs,
+            keys.data_ptr(), idx.data_ptr(), e, j, g, int(vec))
+    return outs
+
+
+def match_planes_cuda(vals: torch.Tensor, keys: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """The one-array case of :func:`match_planes_many_cuda`."""
+    return match_planes_many_cuda((vals,), keys, idx)[0]

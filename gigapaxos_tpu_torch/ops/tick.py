@@ -10,9 +10,10 @@ at once, as a branch-free dataflow over dense tensors.
 Message passing is implicit: every cross-replica read is a reduction or
 broadcast over the leading replica axis.  All ring windows are
 ``[R, W, G]`` with G the minor axis; ring reads go through
-``window.gather_planes`` and intake placement through
-``window.match_planes``, which launch the hand-written CUDA kernels for CUDA
-tensors (``ops/plane_gather.py``).
+``window.gather_planes_many`` and intake placement through
+``window.match_planes_many``, which launch the hand-written CUDA kernels for
+CUDA tensors (``ops/plane_gather.py``).  The arrays that share an index are
+gathered in one call: five gathers and one match per tick.
 
 ``inbox.alive`` is the failure detector's liveness view.  A dead replica
 contributes nothing and its state freezes; flipping it back alive models
@@ -39,7 +40,7 @@ import torch
 from ..device import resolve_device
 from ..types import GroupStatus, NO_REQUEST
 from .ballot import bal_ge, bal_gt
-from .window import gather_planes, match_planes
+from . import window
 
 I32 = torch.int32
 BOOL = torch.bool
@@ -223,11 +224,9 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     won = prep_mask & (promises >= maj[None, :]) & own2  # <= 1 winner per g
 
     # every replica's accepted window at the common base ring indices
-    a_bnum = gather_planes(state.acc_bnum, i_j)
-    a_bcoord = gather_planes(state.acc_bcoord, i_j)
-    a_req = gather_planes(state.acc_req, i_j)
-    a_slot = gather_planes(state.acc_slot, i_j)
-    a_stop = gather_planes(state.acc_stop, i_j)
+    a_bnum, a_bcoord, a_req, a_slot, a_stop = window.gather_planes_many(
+        (state.acc_bnum, state.acc_bcoord, state.acc_req, state.acc_slot,
+         state.acc_stop), i_j)
     acc_here = (a_slot == s_j[None, :, :]) & (a_bnum >= 0)  # [R, W, G]
 
     # carryover: among the winner's promisers, max-ballot accepted pvalue
@@ -244,12 +243,8 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     c_valid = jw <= hi[None, :]  # [W, G] window order
     # window order -> ring order: ring plane i holds window offset (i-base)%W
     j_of_i = torch.bitwise_and(jw - base[None, :], Wm)  # [W, G]
-
-    def to_ring(v):  # [W, G] window-order -> ring-order
-        return gather_planes(v, j_of_i)
-
-    co_req, co_stop, co_valid, co_slot = (
-        to_ring(c_req), to_ring(c_stop), to_ring(c_valid), to_ring(s_j))
+    co_req, co_stop, co_valid, co_slot = window.gather_planes_many(
+        (c_req, c_stop, c_valid, s_j), j_of_i)
     won3 = won[:, None, :]
     prop_req = torch.where(won3, co_req[None], state.prop_req)
     prop_slot = torch.where(won3, co_slot[None], state.prop_slot)
@@ -297,8 +292,8 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
 
     ji = torch.bitwise_and(jw - w_next[None, :], Wm)  # [W, G]
     new_at_i = ji < k[None, :]  # ring planes receiving new proposals
-    nreq_i = match_planes(req_flat, q_key, ji)
-    nstop_i = match_planes(stop_flat, q_key, ji)
+    nreq_i, nstop_i = window.match_planes_many((req_flat, stop_flat), q_key,
+                                               ji)
     nslot_i = w_next[None, :] + ji
     wmask = is_win[:, None, :] & new_at_i[None, :, :]
     prop_req = torch.where(wmask, nreq_i[None], prop_req)
@@ -346,11 +341,10 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     bal_coord = torch.where(raise_p, ab_c, bal_coord)
 
     # ---------------- phase 2c: tally + quorum ----------------
-    A_bnum = gather_planes(acc_bnum, i_j)
-    A_bcoord = gather_planes(acc_bcoord, i_j)
-    A_req = gather_planes(acc_req, i_j)
-    A_slot = gather_planes(acc_slot, i_j)
-    A_stop = gather_planes(acc_stop, i_j)
+    (A_bnum, A_bcoord, A_req, A_slot, A_stop, D_slot,
+     D_valid) = window.gather_planes_many(
+        (acc_bnum, acc_bcoord, acc_req, acc_slot, acc_stop, state.dec_slot,
+         state.dec_valid), i_j)
     voteable = (A_slot == s_j[None]) & (A_bnum >= 0) & acc_ok[:, None, :]
     B_n, B_c = _lexmax(torch.where(voteable, A_bnum, NEG_INF), A_bcoord,
                        dim=0)
@@ -359,13 +353,14 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     decided = (cnt >= maj[None, :]) & (B_n != NEG_INF)  # window order
     v_req = torch.where(votes, A_req, 0).amax(dim=0)
     v_stop = (votes & A_stop).any(dim=0)
-    D_slot = gather_planes(state.dec_slot, i_j)
-    D_valid = gather_planes(state.dec_valid, i_j)
     already = ((D_slot == s_j[None]) & D_valid).any(dim=0)  # [W, G]
     decided_now = _i32sum(decided & ~already, 0)  # [G]
 
-    de_req, de_stop, de_valid, de_slot = (
-        to_ring(v_req), to_ring(v_stop), to_ring(decided), to_ring(s_j))
+    de_req, de_stop, de_valid = window.gather_planes_many(
+        (v_req, v_stop, decided), j_of_i)
+    # the reference gathers to_ring(s_j) a second time here; s_j and j_of_i
+    # have not changed since phase 1, so the values equal co_slot's
+    de_slot = co_slot
     # write decisions, but never clobber a laggard's undelivered ring
     rel_w = de_slot[None] - state.exec_slot[:, None, :]
     dwrite = de_valid[None] & (rel_w >= 0) & (rel_w < W) & acc_ok[:, None, :]
@@ -399,10 +394,8 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     # ---------------- phase 4: in-order execution ----------------
     s_own = state.exec_slot[:, None, :] + jw[None]  # [R, W, G]
     i_own = torch.bitwise_and(s_own, Wm)
-    Dreq = gather_planes(dec_req, i_own)
-    Dslot = gather_planes(dec_slot, i_own)
-    Dstop = gather_planes(dec_stop, i_own)
-    Dval = gather_planes(dec_valid, i_own)
+    Dreq, Dslot, Dstop, Dval = window.gather_planes_many(
+        (dec_req, dec_slot, dec_stop, dec_valid), i_own)
     ready = Dval & (Dslot == s_own) & acc_ok[:, None, :]
     run = torch.cumprod(ready.to(I32), dim=1, dtype=I32).to(BOOL)
     stop_hit = run & Dstop

@@ -7,9 +7,11 @@ leading-run count over the reordered window.  G stays the minor axis so
 that neighbouring CUDA threads touch neighbouring groups and every load is
 coalesced.
 
-``gather_planes`` and ``match_planes`` are dispatchers: a CUDA tensor goes
-to the hand-written kernel in ``ops/plane_gather.py``, a CPU tensor to its
-plain version.
+``gather_planes``, ``match_planes`` and their ``_many`` forms are
+dispatchers: a CUDA tensor goes to the hand-written kernel in
+``ops/plane_gather.py``, a CPU tensor to its plain version.  The ``_many``
+forms take several arrays that share one index, which one kernel launch
+then reads once for all of them; the tick calls only those.
 """
 
 from __future__ import annotations
@@ -64,6 +66,22 @@ def match_planes(vals, keys, idx):
     if vals.device.type == "cpu":
         return plane_gather.match_planes_plain(vals, keys, idx)
     return plane_gather.match_planes_cuda(vals, keys, idx)
+
+
+def gather_planes_many(arrs, idx):
+    """:func:`gather_planes` of each of ``arrs`` (one shape, int32 or bool,
+    at most 8 on CUDA) with one shared ``idx``, as a tuple."""
+    if arrs[0].device.type == "cpu":
+        return plane_gather.gather_planes_many_plain(arrs, idx)
+    return plane_gather.gather_planes_many_cuda(arrs, idx)
+
+
+def match_planes_many(vals_list, keys, idx):
+    """:func:`match_planes` of each of ``vals_list`` (one shape, at most 4 on
+    CUDA) with shared ``keys`` and ``idx``, as a tuple."""
+    if vals_list[0].device.type == "cpu":
+        return plane_gather.match_planes_many_plain(vals_list, keys, idx)
+    return plane_gather.match_planes_many_cuda(vals_list, keys, idx)
 
 
 def clear_below(arr, slot_of_entry, watermark, fill):

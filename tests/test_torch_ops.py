@@ -3,7 +3,8 @@
 
 Tolerance: 0.  Every value is int32 or bool; results must be equal.
 The CUDA kernels themselves are compared with their plain versions only
-where a card is present (``cuda`` marker).
+where a card is present (``cuda`` marker), and the fused (``_many``) forms
+are held to the reference one array at a time.
 """
 
 import jax.numpy as jnp
@@ -176,6 +177,141 @@ def test_cpu_tensors_never_launch_kernels():
     assert tpg.launches == {"gather_planes": 0, "match_planes": 0}
 
 
+# the tick's five gather sets (arrays that share one index) at small size:
+# (leading shape, dtypes of the arrays, per-lead index)
+R_, W_ = 3, 8
+TICK_SETS = {
+    "S1": ((R_,), "iiiib", False),
+    "S2": ((), "iibb", False),
+    "S3": ((R_,), "iiiiibb", False),
+    "S4": ((), "ibb", False),
+    "S5": ((R_,), "iibb", True),
+}
+RAGGED_G = [1, 3, 130, 256, 4099]
+
+
+def _mixed(rng, shape, kinds):
+    """One array per letter of ``kinds``: ``i`` int32, ``b`` bool."""
+    return [_i32(rng, shape) if c == "i" else rng.random(shape) < 0.5
+            for c in kinds]
+
+
+def _rotation(rng, lead, g):
+    """Ring indices as the tick makes them: ``(base + j) & (W - 1)``,
+    ``lead + [W, G]``."""
+    base = rng.integers(0, 2**30, size=lead + (1, g))
+    j = np.arange(W_)[:, None]
+    return ((base + j) & (W_ - 1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("g", RAGGED_G)
+@pytest.mark.parametrize("tick_set", sorted(TICK_SETS))
+def test_gather_planes_many_plain_matches_reference(tick_set, g):
+    lead, kinds, perlead = TICK_SETS[tick_set]
+    rng = np.random.default_rng(g + len(kinds))
+    arrs = _mixed(rng, lead + (W_, g), kinds)
+    idx = _rotation(rng, lead if perlead else (), g)
+    got = tw.gather_planes_many([_t(a) for a in arrs], _t(idx))
+    assert len(got) == len(arrs)
+    for a, out in zip(arrs, got):
+        want = np.asarray(jw.gather_planes(jnp.asarray(a), jnp.asarray(idx)))
+        out = out.numpy()
+        assert out.dtype == want.dtype and np.array_equal(out, want)
+        if g % 128 == 0:  # the pallas kernel's lane tiling needs G % 128 == 0
+            pallas = gather_planes_pallas(jnp.asarray(a), jnp.asarray(idx),
+                                          interpret=True)
+            assert np.array_equal(out, np.asarray(pallas))
+
+
+@pytest.mark.parametrize("g", RAGGED_G)
+@pytest.mark.parametrize("kinds", ["i", "ib", "bib", "ibbi"])
+def test_match_planes_many_plain_matches_reference(kinds, g):
+    rng = np.random.default_rng(3 * g + len(kinds))
+    e = R_ * 4  # the tick's intake entries, R * P
+    vals = _mixed(rng, (e, g), kinds)
+    # ranks of taken entries with -1 holes, a duplicate key per lane
+    keys = rng.integers(0, e, size=(e, g)).astype(np.int32)
+    keys[rng.random((e, g)) < 0.3] = -1
+    keys[1] = keys[0]
+    idx = _rotation(rng, (), g)
+    got = tw.match_planes_many([_t(v) for v in vals], _t(keys), _t(idx))
+    assert len(got) == len(vals)
+    for v, out in zip(vals, got):
+        want = np.asarray(jw.match_planes(jnp.asarray(v), jnp.asarray(keys),
+                                          jnp.asarray(idx)))
+        out = out.numpy()
+        assert out.dtype == want.dtype and np.array_equal(out, want)
+        if g % 128 == 0:
+            pallas = match_planes_pallas(jnp.asarray(v), jnp.asarray(keys),
+                                         jnp.asarray(idx), interpret=True)
+            assert np.array_equal(out, np.asarray(pallas))
+
+
+@pytest.mark.parametrize("dead", [None, 1])
+def test_tick_makes_five_gathers_and_one_match(monkeypatch, dead):
+    """One tick calls the fused dispatchers once per set of arrays that
+    share an index (5 gathers of 5, 4, 7, 3 and 4 arrays, 1 match of 2) and
+    never the one-array forms: on CUDA that is 5 + 1 launches."""
+    from gigapaxos_tpu_torch.ops import tick as pt
+    from gigapaxos_tpu_torch.paxos import state as pst
+
+    calls = []
+
+    def counting(kind, fn):
+        def wrapped(arrs, *rest):
+            calls.append((kind, len(arrs)))
+            return fn(arrs, *rest)
+        return wrapped
+
+    def forbidden(*args):
+        raise AssertionError("the tick called a one-array plane select")
+
+    monkeypatch.setattr(tw, "gather_planes_many",
+                        counting("gather", tw.gather_planes_many))
+    monkeypatch.setattr(tw, "match_planes_many",
+                        counting("match", tw.match_planes_many))
+    monkeypatch.setattr(tw, "gather_planes", forbidden)
+    monkeypatch.setattr(tw, "match_planes", forbidden)
+    R, W, P, G = 3, 8, 4, 64
+    state = pst.create_groups(pst.init_state(R, G, W, device="cpu"),
+                              np.arange(G), np.ones((G, R), bool))
+    alive = torch.ones(R, dtype=torch.bool)
+    if dead is not None:
+        alive[dead] = False
+    ticks = 3
+    for t in range(ticks):
+        inbox = pt.make_inbox(R, G, P, device="cpu")
+        req = inbox.req.clone()
+        req[0, 0] = 1 + t * G + torch.arange(G, dtype=torch.int32)
+        state, _ = pt.paxos_tick_impl(
+            state, pt.TickInbox(req, inbox.stop, alive), -1, 0)
+    per_tick = [("gather", 5), ("gather", 4), ("match", 2), ("gather", 7),
+                ("gather", 3), ("gather", 4)]
+    assert calls == per_tick * ticks
+
+
+@pytest.mark.parametrize("fn,args,err", [
+    ("gather_planes_many_cuda", "none", ValueError),
+    ("gather_planes_many_cuda", "nine", ValueError),
+    ("gather_planes_many_cuda", "cpu", ValueError),
+    ("match_planes_many_cuda", "none", ValueError),
+    ("match_planes_many_cuda", "five", ValueError),
+    ("match_planes_many_cuda", "cpu", ValueError),
+])
+def test_kernel_wrappers_refuse_what_no_launch_takes(fn, args, err):
+    """The wrappers raise (and launch nothing) on CPU tensors and on array
+    counts one launch does not take; they never fall back."""
+    arr = torch.zeros(8, 16, dtype=torch.int32)
+    n = {"none": 0, "nine": 9, "five": 5, "cpu": 1}[args]
+    tpg.reset_launches()
+    with pytest.raises(err):
+        if fn.startswith("gather"):
+            getattr(tpg, fn)([arr] * n, arr)
+        else:
+            getattr(tpg, fn)([arr] * n, arr, arr)
+    assert tpg.launches == {"gather_planes": 0, "match_planes": 0}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -217,6 +353,79 @@ def test_match_planes_kernel_matches_plain(cuda_device, e, dtype):
     got = tpg.match_planes_cuda(vals.to(cuda_device), keys.to(cuda_device),
                                 idx.to(cuda_device)).cpu()
     assert torch.equal(got, tpg.match_planes_plain(vals, keys, idx))
+
+
+def _card_array(shape, dtype, gen, dev, lo=-999, hi=999, offset=False):
+    """A seeded array on the card; ``offset`` makes it a contiguous view
+    one element into its storage, which no 16-byte vector load may read."""
+    src = (torch.randint(0, 2, shape, generator=gen).bool()
+           if dtype == torch.bool else
+           torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32))
+    if not offset:
+        return src.to(dev)
+    view = torch.empty(src.numel() + 1, dtype=dtype, device=dev)[1:]
+    return view.view(shape).copy_(src)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", RAGGED_G + [4096])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_gather_planes_many_kernel_matches_plain(cuda_device, k, g):
+    """One launch of k mixed int32/bool arrays against the plain version:
+    shared and per-lead index, indices out of [0, Wp), ragged G, and the
+    first array as an unaligned view (scalar lanes)."""
+    gen = torch.Generator().manual_seed(31 * k + g)
+    dts = [(torch.int32, torch.bool)[(i + k) % 2] for i in range(k)]
+    for lead, wp, j in (((3,), 8, 8), ((2, 3), 12, 9)):
+        for perlead in (False, True):
+            for offset in (False, True):
+                arrs = [_card_array(lead + (wp, g), d, gen, cuda_device,
+                                    offset=offset and i == 0)
+                        for i, d in enumerate(dts)]
+                idx = _card_array((lead if perlead else ()) + (j, g),
+                                  torch.int32, gen, cuda_device, -2, wp + 3)
+                got = tpg.gather_planes_many_cuda(arrs, idx)
+                want = tpg.gather_planes_many_plain(
+                    [a.cpu() for a in arrs], idx.cpu())
+                assert len(got) == k
+                for a, b in zip(got, want):
+                    assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", RAGGED_G + [4096])
+@pytest.mark.parametrize("k", range(1, 5))
+def test_match_planes_many_kernel_matches_plain(cuda_device, k, g):
+    """One launch of k mixed int32/bool vals arrays sharing keys and index
+    against the plain version, ragged G and an unaligned first array
+    included; duplicate keys, where the highest entry wins."""
+    gen = torch.Generator().manual_seed(17 * k + g)
+    dts = [(torch.int32, torch.bool)[(i + k) % 2] for i in range(k)]
+    for e, j in ((12, 8), (20, 32)):
+        for offset in (False, True):
+            vals = [_card_array((e, g), d, gen, cuda_device,
+                                offset=offset and i == 0)
+                    for i, d in enumerate(dts)]
+            keys = _card_array((e, g), torch.int32, gen, cuda_device, -1,
+                               e // 2)
+            idx = _card_array((j, g), torch.int32, gen, cuda_device, -1, e)
+            got = tpg.match_planes_many_cuda(vals, keys, idx)
+            want = tpg.match_planes_many_plain([v.cpu() for v in vals],
+                                               keys.cpu(), idx.cpu())
+            assert len(got) == k
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_fused_launch_counts_once(cuda_device):
+    arrs = [torch.zeros(3, 8, 64, dtype=d, device=cuda_device)
+            for d in (torch.int32, torch.bool, torch.int32)]
+    idx = torch.zeros(8, 64, dtype=torch.int32, device=cuda_device)
+    tpg.reset_launches()
+    tpg.gather_planes_many_cuda(arrs, idx)
+    tpg.match_planes_many_cuda([a[0] for a in arrs], idx, idx)
+    assert tpg.launches == {"gather_planes": 1, "match_planes": 1}
 
 
 def test_host_slot_cmp_matches_reference():
