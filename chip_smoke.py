@@ -23,7 +23,21 @@ the kernels are built for sm_90a).  It
    of the same inputs byte for byte;
 4. manager phase: ``PaxosManager`` at stack_bench's shape (G=2^17, compact
    outbox, pipelined ticks, three ``DenseCounterApp``s) under
-   ``propose_bulk`` load with completion sinks, then a ``KVApp`` leg.
+   ``propose_bulk`` load with completion sinks, then a ``KVApp`` leg;
+5. wal phase, two legs on the native journal (``csrc/journal.cc``, built
+   with g++): ``wal-128k`` makes the manager phase's deployment durable
+   (fsync every tick, one checkpoint mid-run), crashes it, recovers it on
+   the card through both replay arms and holds both against each other and
+   against the drained live manager (every acked request present at every
+   replica, the first ticks' journal byte-equal to a CPU run);
+   ``recovery-1M-sparse`` journals 8 busy groups on a 2^20-group plane,
+   crashes, recovers through the sparse batched replay, and serves a probe.
+   Each replayed tick must launch 5 gathers and 1 match.
+
+The kernels phase also holds both kernels against their plain versions at
+the narrow widths sparse replay gives them (A=8 groups, W=4) and at the
+128k deployment's shapes (G=2^17, W=8, P=2) that the manager phase, the
+durable manager and its dense replay give them.
 
 It prints the card, the build, each phase's numbers, one ``{"kernels": ...}``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -34,11 +48,14 @@ without the package beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -245,7 +262,7 @@ def edge_cases(torch, pg, dev):
                          pg.gather_planes_many_plain(arrs, idx),
                          f"gather g={g} lead={lead} wp={wp} k={k}")
                     n += 1
-        for e, j in ((12, 8), (20, 32)):
+        for e, j in ((6, 8), (12, 8), (20, 32)):
             for k in range(1, 5):
                 dts = [(torch.int32, torch.bool)[(i + k) % 2]
                        for i in range(k)]
@@ -271,10 +288,23 @@ def path_launches(pg, path: str, n_ticks: int) -> dict:
     return got
 
 
+#: (W, G, P, label prefix) of the shapes the other paths give the kernels:
+#: the recovery-1M-sparse leg's 8 active groups at W=4 (sparse replay),
+#: and the 128k deployment at P=2 (the manager phase, the durable manager
+#: and its dense replay)
+REPLAY_SHAPES = ((4, 8, 4, "replay A=8 W=4: "),
+                 (8, 1 << 17, 2, "replay/manager 128k: "))
+
+
 def kernels_phase(torch, pg, dev, R, W, P, G, bw):
     flush = L2Flush(torch, dev)
     rows = []
-    for c in kernel_cases(torch, dev, R, W, P, G):
+    cases = kernel_cases(torch, dev, R, W, P, G)
+    for w, g, p, prefix in REPLAY_SHAPES:
+        for c in kernel_cases(torch, dev, R, w, p, g):
+            c.label, c.tick_set = prefix + c.label, None
+            cases.append(c)
+    for c in cases:
         what = f"{c.name} {c.label}"
         got = c.fused(pg)
         want = c.plain(pg)
@@ -459,15 +489,8 @@ class StreamCheck:
 
 # ------------------------------------------------------------ manager phase
 
-def manager_phase(torch, dev, R, W, G, ticks):
-    import struct
-
-    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
-    from gigapaxos_tpu_torch.models.dense_apps import DenseCounterApp
-    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
-
-    # benchmarks/stack_bench.py's configuration
-    cfg = GigapaxosTpuConfig()
+def stack_cfg(cfg, R, W, G):
+    """benchmarks/stack_bench.py's configuration."""
     cfg.paxos.max_groups = G
     cfg.paxos.window = W
     cfg.paxos.proposals_per_tick = 2
@@ -478,6 +501,17 @@ def manager_phase(torch, dev, R, W, G, ticks):
     cfg.paxos.deactivation_ticks = 0
     # the intake governor stays on, with its watermark above the load
     cfg.overload.intake_hi = cfg.paxos.bulk_capacity
+    return cfg
+
+
+def manager_phase(torch, dev, R, W, G, ticks):
+    import struct
+
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.dense_apps import DenseCounterApp
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+
+    cfg = stack_cfg(GigapaxosTpuConfig(), R, W, G)
     apps = [DenseCounterApp(G) for _ in range(R)]
     m = PaxosManager(cfg, R, apps, spill_ns="smoke", device=dev)
     for a in apps:
@@ -576,6 +610,281 @@ def kv_leg(torch, dev, R, W, n_groups=8):
             check(apps[r].execute(f"kv{i}", b"GET k", 0) == f"v{i}".encode(),
                   f"replica {r} lost kv{i}")
     return n_groups
+
+
+# ---------------------------------------------------------------- wal phase
+
+def assert_same_manager(torch, a, b, what):
+    """Two managers are equal field by field: device state, host exec
+    watermark, apps, rows, request records, queues, tick and rid
+    counters."""
+    for name, x, y in zip(a.state._fields, a.state, b.state):
+        check(x.dtype == y.dtype and torch.equal(x, y.to(x.device)),
+              f"{what}: state.{name} differs")
+    check(np.array_equal(a._host_exec, b._host_exec),
+          f"{what}: host exec watermark differs")
+    for r, (x, y) in enumerate(zip(a.apps, b.apps)):
+        if hasattr(x, "db"):
+            check(x.db == y.db, f"{what}: replica {r} app differs")
+        else:
+            check(np.array_equal(x.acc, y.acc)
+                  and np.array_equal(x.count, y.count),
+                  f"{what}: replica {r} app differs")
+    check(dict(a.rows.items()) == dict(b.rows.items()),
+          f"{what}: rows differ")
+    check(sorted(a.outstanding) == sorted(b.outstanding),
+          f"{what}: outstanding requests differ")
+    qa = {k: list(v) for k, v in a._queues.items() if v}
+    qb = {k: list(v) for k, v in b._queues.items() if v}
+    check(qa == qb, f"{what}: queues differ")
+    check(a.tick_num == b.tick_num and a._next_rid == b._next_rid,
+          f"{what}: tick {a.tick_num}/{b.tick_num} rid "
+          f"{a._next_rid}/{b._next_rid}")
+
+
+def timed_recover(torch, pg, dev, cfg, R, apps, log_dir, mode, from_tick):
+    """``recover`` on the card with the launch counts set to 0 just
+    before it; each replayed tick must launch 5 gathers and 1 match.
+    Returns (manager, seconds, launches)."""
+    from gigapaxos_tpu_torch.wal.logger import recover
+
+    pg.reset_launches()
+    t0 = time.perf_counter()
+    m = recover(cfg, R, apps, log_dir, native=True, replay_mode=mode,
+                device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = None
+    if dev.type == "cuda":  # the plain versions run on the CPU
+        got = path_launches(pg, f"replay ({mode})", m.tick_num - from_tick)
+    check(m.wal.backend == "native", "recovery did not open the native "
+                                     "journal")
+    return m, dt, got
+
+
+def replay_stats(m):
+    return {"windows": m._replay_windows,
+            "sparse_windows": m._replay_sparse_windows,
+            "overflows": m._replay_overflows}
+
+
+def checkpoint_stats() -> tuple:
+    from gigapaxos_tpu_torch.obs.metrics import registry
+
+    (h,) = registry().find("wal_checkpoint_seconds") or (None,)
+    return (h.count, h.total) if h is not None else (0, 0.0)
+
+
+def journal_bytes(log_dir) -> int:
+    return sum(os.path.getsize(p)
+               for p in glob.glob(os.path.join(log_dir, "journal.*.log")))
+
+
+def wal_dense_leg(torch, dev, R, W, G, ticks, work, cpu_ticks=3,
+                  manager_ms=None):
+    """``wal-128k``: the manager phase's deployment with the port's WAL
+    (native journal, fsync every tick, one checkpoint mid-run), crashed by
+    closing the WAL with no drain, recovered on the card through the
+    batched and the record-at-a-time arms."""
+    import struct
+
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.dense_apps import DenseCounterApp
+    from gigapaxos_tpu_torch.obs.metrics import registry
+    from gigapaxos_tpu_torch.ops import plane_gather as pg
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+    from gigapaxos_tpu_torch.wal.logger import PaxosLogger
+
+    cfg = stack_cfg(GigapaxosTpuConfig(), R, W, G)
+    names = [f"g{i}" for i in range(G)]
+    rows = np.arange(G, dtype=np.int64)
+    payload = struct.pack("<q", 1)
+
+    def apps():  # group g<i> sits on row i (checked below)
+        return [DenseCounterApp(G, row_of=lambda n: int(n[1:]))
+                for _ in range(R)]
+
+    def durable(device, log_dir):
+        wal = PaxosLogger(log_dir, sync_every_ticks=1,
+                          checkpoint_every_ticks=ticks // 2 + 1,
+                          native=True)  # one checkpoint, mid-run
+        m = PaxosManager(cfg, R, apps(), wal=wal, spill_ns="smoke-wal",
+                         device=device)
+        check(wal.backend == "native", "the WAL did not open the native "
+                                       "journal")
+        check(m.create_paxos_instances(names, list(range(R))) == G,
+              "create failed")
+        return m
+
+    live_dir = os.path.join(work, "live")
+    m = durable(dev, live_dir)
+    backend = m.wal.backend
+    check(all(m.rows.row(n) == i for i, n in enumerate(names)),
+          "rows not in creation order")
+    appended = registry().counter("wal_appended_bytes_total")
+    b0 = appended.value
+    c0 = checkpoint_stats()
+    acks = np.zeros(G, np.int64)  # acked requests per group
+
+    def sink(offsets, responses):
+        # one block per tick over every row in order: offset i is row i
+        np.add.at(acks, offsets, 1)
+
+    prefix = None
+    admitted = 0
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        rids = m.propose_bulk(rows, payload, batch_sink=sink)
+        check(bool((rids >= 0).all()), "bulk admission refused")
+        admitted += len(rids)
+        m.tick()
+        if t == cpu_ticks - 1:  # fsynced: every tick syncs
+            with open(os.path.join(live_dir, "journal.00000000.log"),
+                      "rb") as f:
+                prefix = f.read()
+    elapsed = time.perf_counter() - t0
+    c1 = checkpoint_stats()
+    tick_bytes = appended.value - b0
+    phases = host_phases("smoke-wal")
+    snaps = glob.glob(os.path.join(live_dir, "snapshot.*.bin"))
+    check(len(snaps) == 1 and c1[0] == c0[0] + 1, "expected one checkpoint")
+    snap_tick = int(os.path.basename(snaps[0]).split(".")[1])
+    snap_mb = os.path.getsize(snaps[0]) / 1e6
+    jbytes = journal_bytes(live_dir)
+    m.wal.close()  # crash: no drain, the pending outbox is lost
+    acked = acks.copy()
+    copy_dir = os.path.join(work, "copy")
+    shutil.copytree(live_dir, copy_dir)
+
+    mb, t_b, launches = timed_recover(torch, pg, dev, cfg, R, apps(),
+                                      copy_dir, "batched", snap_tick)
+    check(mb._replay_overflows == 0, "batched replay overflowed")
+    mr, t_r, _ = timed_recover(torch, pg, dev, cfg, R, apps(), live_dir,
+                               "reference", snap_tick)
+    m.drain_pipeline()
+    assert_same_manager(torch, mb, mr, "batched vs reference recovery")
+    assert_same_manager(torch, m, mb, "drained live vs batched recovery")
+    for r in range(R):
+        check(bool(np.all(mb.apps[r].count >= acked)),
+              f"an acked request is missing at replica {r}")
+    check(int(acked.sum()) > 0, "nothing was acked before the crash")
+
+    # the first ticks' journal equals a CPU run of the same inputs
+    cpu_dir = os.path.join(work, "cpu")
+    mc = durable("cpu", cpu_dir)
+    for t in range(cpu_ticks):
+        mc.propose_bulk(rows, payload)
+        mc.tick()
+    mc.wal.close()
+    with open(os.path.join(cpu_dir, "journal.00000000.log"), "rb") as f:
+        check(f.read() == prefix, f"the first {cpu_ticks} ticks' journal "
+                                  "differs from the CPU run")
+    ckpt_s = c1[1] - c0[1]
+    return {
+        "G": G, "R": R, "W": W, "ticks": ticks, "backend": backend,
+        "admitted": admitted, "acked": int(acked.sum()),
+        "journal_mb_at_crash": jbytes / 1e6,
+        "tick_record_mb": tick_bytes / 1e6,
+        "bytes_per_request": tick_bytes / admitted,
+        "wal_fsync_ms_per_tick": phases.get("wal_fsync"),
+        "ms_per_tick": elapsed / ticks * 1e3,
+        "ms_per_tick_without_checkpoint": (elapsed - ckpt_s) / ticks * 1e3,
+        "manager_phase_ms_per_tick": manager_ms,
+        "snapshot_mb": snap_mb, "checkpoint_s": ckpt_s,
+        "snapshot_tick": snap_tick, "replayed_ticks": mb.tick_num - snap_tick,
+        "replay_s": {"batched": t_b, "reference": t_r},
+        "replay": replay_stats(mb), "launches": launches,
+        "host_ms_per_tick_by_phase": phases,
+    }
+
+
+def wal_sparse_leg(torch, dev, R, W, G, ticks, work, groups=8):
+    """``recovery-1M-sparse``: benchmarks/recovery_bench.py's fast-restart
+    shape (W=4, exec budget 8192, ``groups`` busy services with 2-3
+    proposals each per tick on a G-group plane), crashed and recovered
+    through the sparse batched replay; then one probe PUT is served."""
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.ops import plane_gather as pg
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+    from gigapaxos_tpu_torch.wal.logger import PaxosLogger
+
+    cfg = GigapaxosTpuConfig()
+    cfg.paxos.max_groups = G
+    cfg.paxos.window = W
+    cfg.paxos.compact_outbox = True
+    cfg.paxos.exec_budget = 8192
+    live_dir = os.path.join(work, "live")
+    m = PaxosManager(cfg, R, [KVApp() for _ in range(R)], device=dev,
+                     wal=PaxosLogger(live_dir, native=True))
+    check(m.wal.backend == "native", "the WAL did not open the native "
+                                     "journal")
+    for s in range(groups):
+        check(m.create_paxos_instance(f"svc{s}", list(range(R))),
+              "create failed")
+    acked = []
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        for s in range(groups):
+            for j in range(2 + (t + s) % 2):
+                m.propose(f"svc{s}", f"PUT k{t}.{j} v{s}.{t}.{j}".encode(),
+                          lambda rid, resp: acked.append(rid))
+        m.tick()
+    t_live = time.perf_counter() - t0
+    jbytes = journal_bytes(live_dir)
+    m.wal.close()  # crash: the journal is the whole state
+    copy_dir = os.path.join(work, "copy")
+    shutil.copytree(live_dir, copy_dir)
+
+    mb, t_b, launches = timed_recover(torch, pg, dev, cfg, R,
+                                      [KVApp() for _ in range(R)],
+                                      copy_dir, "batched", 0)
+    stats = replay_stats(mb)
+    check(stats["sparse_windows"] > 0, f"sparse replay never ran: {stats}")
+    check(stats["overflows"] == 0, "batched replay overflowed")
+    mr, t_r, _ = timed_recover(torch, pg, dev, cfg, R,
+                               [KVApp() for _ in range(R)], live_dir,
+                               "reference", 0)
+    assert_same_manager(torch, mb, mr, "sparse batched vs reference")
+    check(mb.tick_num == ticks, f"replayed {mb.tick_num} of {ticks} ticks")
+    # every acked request is in every replica's app (each PUT key once)
+    n_keys = sum(len(t) for t in mb.apps[0].db.values())
+    for r in range(R):
+        check(mb.apps[r].db == mb.apps[0].db, f"replica {r} differs")
+    check(n_keys >= len(acked) > 0, f"{len(acked)} acked, {n_keys} present")
+    served = []
+    t1 = time.perf_counter()
+    mb.propose("svc0", b"PUT probe 1", lambda rid, resp: served.append(resp))
+    for _ in range(64):
+        mb.tick()
+        if served:
+            break
+    t_probe = time.perf_counter() - t1
+    check(served == [b"OK"], f"probe not served: {served}")
+    check(mb.wal.is_synced(), "probe acked before its fsync")
+    return {
+        "G": G, "R": R, "W": W, "groups": groups, "ticks": ticks,
+        "backend": mb.wal.backend, "acked": len(acked),
+        "journal_mb": jbytes / 1e6,
+        "live_s": t_live, "replay_s": {"batched": t_b, "reference": t_r},
+        "crash_to_first_served_s": t_b + t_probe, "probe_s": t_probe,
+        "replay": stats, "launches": launches,
+    }
+
+
+def wal_phase(torch, dev, R, W, manager_ms):
+    """Both legs on the card, in a temporary directory removed after."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+    try:
+        dense = wal_dense_leg(torch, dev, R, W, 1 << 17, ticks=30,
+                              work=os.path.join(work, "dense"),
+                              manager_ms=manager_ms)
+        sparse = wal_sparse_leg(torch, dev, R, 4, 1 << 20, ticks=16,
+                                work=os.path.join(work, "sparse"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dense, sparse
 
 
 # ------------------------------------------------------ profile (opt-in)
@@ -701,6 +1010,12 @@ def main(argv=None) -> int:
         print("manager " + json.dumps(mgr), flush=True)
         print("kv " + json.dumps({"groups": kv_leg(torch, dev, R, W)}),
               flush=True)
+        dense, sparse = wal_phase(torch, dev, R, W, mgr["ms_per_tick"])
+        print("wal-128k " + json.dumps(dense), flush=True)
+        print("recovery-1M-sparse " + json.dumps(sparse), flush=True)
+        # the replay path: both legs' batched recoveries
+        launches["replay"] = {k: dense["launches"][k] + sparse["launches"][k]
+                              for k in dense["launches"]}
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)

@@ -726,6 +726,117 @@ def unpack_compact(flat, R: int, G: int, exec_budget: int,
 
 
 # --------------------------------------------------------------------------
+# Batched WAL replay: K journaled ticks back to back on the device.
+#
+# Journal replay re-runs the SAME fused tick body as the live run.  A window
+# of K tick inboxes arrives as padded COO columns (entry, lane, row, rid,
+# stop — see wal/columnar.py); each tick scatters its dense inbox on the
+# device, runs the tick and compacts its outbox, and the K compact buffers
+# stay on the device until the window's one ``[K, total]`` copy to the host
+# (made by the caller).  Nothing in the loop reads the device from the
+# host.
+#
+# The tick is functional (it returns fresh tensors and never writes its
+# input state), so the caller keeps the pre-window state: a budget overflow
+# (a tick whose true n_exec exceeds the scatter budget — the compact header
+# carries it) discards the window's outputs and re-runs it through the
+# record-at-a-time arm without any loss.
+# --------------------------------------------------------------------------
+
+
+def _coo_inbox(x, R: int, P: int, g_total: int) -> TickInbox:
+    """Scatter one tick's COO columns into the dense [R, P, G] inbox.
+    Padding lanes target row == g_total, one past the row space: they land
+    in a trash column that is sliced away, the equal of the host-side
+    dense buffers the record-at-a-time arm builds.  Real (entry, lane, row)
+    triples are unique per tick, so only padding repeats an index."""
+    e, p, g = x["e"], x["p"], x["g"]
+    dev = e.device
+    req = torch.zeros((R, P, g_total + 1), dtype=I32, device=dev)
+    req.index_put_((e, p, g), x["rid"])
+    stop = torch.zeros((R, P, g_total + 1), dtype=BOOL, device=dev)
+    stop.index_put_((e, p, g), x["stop"])
+    return TickInbox(req[..., :g_total].contiguous(),
+                     stop[..., :g_total].contiguous(), x["alive"])
+
+
+def replay_scan_ticks(state, xs, P: int, exec_budget: int,
+                      scat_budget: int, lag_budget: int):
+    """K journaled ticks on ``state``'s device.  ``xs``: the window's COO
+    columns as ``[K, M]`` arrays (``e``, ``p``, ``g``, ``rid``, ``stop``)
+    and ``alive [K, R]``, numpy or tensors.  Returns ``(state, packs)`` with
+    ``packs`` the ``[K, total]`` compact buffers, still on the device."""
+    R, G = state.exec_slot.shape
+    dev = state.exec_slot.device
+
+    def col(name, dtype):
+        v = xs[name]
+        return torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v), dtype=dtype, device=dev)
+
+    e, p, g = (col(k, torch.int64) for k in ("e", "p", "g"))
+    rid, stop, alive = col("rid", I32), col("stop", BOOL), col("alive", BOOL)
+    packs = []
+    for k in range(e.shape[0]):
+        x = {"e": e[k], "p": p[k], "g": g[k], "rid": rid[k],
+             "stop": stop[k], "alive": alive[k]}
+        state, out = paxos_tick_impl(state, _coo_inbox(x, R, P, G), -1,
+                                     exec_budget)
+        packs.append(_compact_outbox_impl(out, scat_budget, lag_budget))
+    return state, torch.stack(packs)
+
+
+def replay_scan_ticks_lease(*args, **kwargs):
+    raise NotImplementedError(
+        "lease-plane replay comes with the lease slice of the port")
+
+
+def replay_scan_ticks_mixed(*args, **kwargs):
+    raise NotImplementedError(
+        "register-plane replay comes with the register slice of the port")
+
+
+def replay_scan_ticks_mixed_lease(*args, **kwargs):
+    raise NotImplementedError(
+        "register- and lease-plane replay come with the register and lease "
+        "slices of the port")
+
+
+# --------------------------------------------------------------------------
+# Sparse window replay: the tick fold is a pure per-group map — a row whose
+# inbox is empty does not change AT ALL across a tick (no tick counter
+# enters the fold, cross-replica reductions are row-local), so a replay
+# window only needs the rows its journaled inboxes touch.  The replay
+# gathers those rows into a narrow [R, .., A] state (G is the minor axis of
+# every field), runs the same ticks at width A instead of G, and scatters
+# the evolved columns back: per journaled tick the device fold costs
+# O(active), not O(G).
+# --------------------------------------------------------------------------
+
+
+def _rows_on(rows, dev) -> torch.Tensor:
+    if isinstance(rows, torch.Tensor):
+        return rows.to(device=dev, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+
+
+def replay_gather_rows(state, rows):
+    """Columns ``rows`` of the G (minor) axis of every field, as a narrow
+    state of fresh tensors."""
+    r = _rows_on(rows, state.exec_slot.device)
+    return type(state)(*(t.index_select(t.dim() - 1, r) for t in state))
+
+
+def replay_scatter_rows(full, compact, rows):
+    """Inverse of :func:`replay_gather_rows`, written into ``full`` in
+    place (``rows`` must be duplicate-free); returns ``full``."""
+    r = _rows_on(rows, full.exec_slot.device)
+    for f, c in zip(full, compact):
+        f.index_copy_(f.dim() - 1, r, c)
+    return full
+
+
+# --------------------------------------------------------------------------
 # Payload-sweep frontier: per-group reductions the manager's sweep reads,
 # gathered back only for the rows that hold live records.
 # --------------------------------------------------------------------------

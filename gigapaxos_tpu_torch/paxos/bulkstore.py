@@ -107,6 +107,47 @@ class BulkStore:
         self.n_live += n
         return rids
 
+    def admit_at(self, rids: np.ndarray, rows, entries, stops,
+                 payloads) -> np.ndarray:
+        """Replay admission of explicit (possibly non-contiguous) rids.
+        Rids already live keep their progress (a request admitted before a
+        snapshot and placed after it appears in both); returns the mask of
+        newly admitted entries."""
+        rids = np.asarray(rids, np.int64)
+        idx = self.idx_of(rids)
+        new = ~(self.valid[idx] & (self.rid[idx] == rids))
+        # config columns refresh for EVERY replayed rid: a re-placement
+        # record may carry a re-homed entry replica (the original died
+        # between two placements of the same rid); only progress columns
+        # are preserved for already-live entries
+        self.row[idx] = np.asarray(rows, np.int32)
+        self.entry[idx] = np.asarray(entries, np.int32)
+        self.stop[idx] = (np.zeros(len(rids), bool) if stops is None
+                          else np.asarray(stops, bool))
+        ni = idx[new]
+        self.exec_mask[ni] = 0
+        self.responded[ni] = False
+        self.slot[ni] = -1
+        self.valid[ni] = True
+        self.rid[ni] = rids[new]
+        if isinstance(payloads, (bytes, bytearray)):
+            self.payload[ni] = bytes(payloads)
+            self.pay_len[ni] = len(payloads)
+        else:
+            pa = np.empty(len(rids), object)
+            pa[:] = list(payloads)
+            self.payload[ni] = pa[new]
+            self.pay_len[ni] = np.fromiter(
+                (0 if p is None else len(p) for p in pa[new]), np.int32,
+                count=len(ni),
+            )
+        self.response[ni] = None
+        self.n_live += len(ni)
+        if len(rids):
+            self.lo = min(self.lo, int(rids.min())) if self.hi else int(rids.min())
+            self.hi = max(self.hi, int(rids.max()) + 1)
+        return new
+
     # ---------------------------------------------------------------- execute
     def mark_executed(self, idx: np.ndarray, r: int) -> np.ndarray:
         """Set replica r's executed bit at ``idx``; returns which entries
@@ -150,3 +191,51 @@ class BulkStore:
         self.response[li] = None
         self.n_live -= len(li)
         return len(li)
+
+    # -------------------------------------------------------------- snapshot
+    def snapshot(self) -> dict:
+        """Dense snapshot of live entries only (for WAL checkpoints)."""
+        live = np.nonzero(self.valid)[0]
+        return {
+            "rid": self.rid[live],
+            "row": self.row[live],
+            "entry": self.entry[live],
+            "stop": self.stop[live],
+            "exec_mask": self.exec_mask[live],
+            "responded": self.responded[live],
+            "slot": self.slot[live],
+            "payload": list(self.payload[live]),
+            "response": list(self.response[live]),
+            "lo": self.lo,
+            "hi": self.hi,
+            "done": self.done,
+        }
+
+    def restore(self, snap: dict) -> None:
+        self.__init__(self.cap)
+        rids = np.asarray(snap["rid"], np.int64)
+        idx = self.idx_of(rids)
+        self.rid[idx] = rids
+        self.row[idx] = snap["row"]
+        self.entry[idx] = snap["entry"]
+        self.stop[idx] = snap["stop"]
+        self.exec_mask[idx] = snap["exec_mask"]
+        self.responded[idx] = snap["responded"]
+        self.slot[idx] = snap["slot"]
+
+        def as_obj(items):  # keep bytes as bytes (numpy would S-array them)
+            a = np.empty(len(rids), object)
+            a[:] = list(items)
+            return a
+
+        self.payload[idx] = as_obj(snap["payload"])
+        self.pay_len[idx] = np.fromiter(
+            (0 if p is None else len(p) for p in snap["payload"]), np.int32,
+            count=len(rids),
+        )
+        self.response[idx] = as_obj(snap.get("response", [None] * len(rids)))
+        self.valid[idx] = True
+        self.lo = int(snap["lo"])
+        self.hi = int(snap["hi"])
+        self.done = int(snap["done"])
+        self.n_live = len(rids)

@@ -12,18 +12,22 @@ It owns:
 * per-replica-slot app instances (``Replicable``), executed on the host
   from the device's ordered decision stream;
 * the per-tick batcher: queued proposals are packed into the inbox tensor,
-  rejected intake is re-queued.
+  rejected intake is re-queued;
+* the optional write-ahead log (``wal=PaxosLogger(...)``, ``wal/logger.py``):
+  admin ops and each tick's placed intake are journaled, and client
+  responses are held until an fsync covers the tick that produced them.
 
-This slice ports the single-device path with no write-ahead log.  Options
-whose planes come with later slices of the port (the WAL, register groups,
-leases, the health plane, the device app, the mesh, placement, disk spill,
-the measurement baselines) raise ``NotImplementedError`` at construction.
+This slice ports the single-device path.  Options whose planes come with
+later slices of the port (register groups, leases, the health plane, the
+device app, the mesh, placement, the measurement baselines) raise
+``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -67,11 +71,10 @@ class RequestRecord:
     responded: bool = False
 
 
-def _unported(cfg: GigapaxosTpuConfig, wal) -> List[str]:
+def _unported(cfg: GigapaxosTpuConfig) -> List[str]:
     """Names of the set options whose planes this slice does not port."""
     p = cfg.paxos
     checks = [
-        (wal is not None, "wal (the WAL slice)"),
         (p.register_groups, "paxos.register_groups (the register slice)"),
         (p.read_leases, "paxos.read_leases (the lease slice)"),
         (p.group_health, "paxos.group_health (the health slice)"),
@@ -97,13 +100,15 @@ class PaxosManager:
         device=None,
     ):
         """``device`` defaults to CUDA (see ``device.resolve_device``);
-        ``spill_ns`` names this manager's plane in metrics."""
-        missing = _unported(cfg, wal)
+        ``spill_ns`` names this manager's plane in metrics; ``wal`` is an
+        optional ``wal.logger.PaxosLogger``."""
+        missing = _unported(cfg)
         if missing:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(missing))
         assert len(apps) == n_replicas
         self.cfg = cfg
+        self.wal = wal
         self.device = resolve_device(device)
         self.R = n_replicas
         self.G = cfg.paxos.max_groups
@@ -140,8 +145,12 @@ class PaxosManager:
         self._ov_node = spill_ns or "-"
         self._stopped_rows: set[int] = set()
         # ---- pause (deactivation): name -> HotRestoreInfo; row freed ----
-        self._paused = DiskMap(cfg.paxos.spill_dir or None,
-                               cfg.paxos.spill_cache)
+        # paused records beyond spill_cache page to spill_dir/<spill_ns>
+        self._paused = DiskMap(
+            os.path.join(cfg.paxos.spill_dir, spill_ns)
+            if cfg.paxos.spill_dir else None,
+            cfg.paxos.spill_cache,
+        )
         self._last_active = np.zeros(self.G, np.int64)
         self._row_outstanding = collections.Counter()
         # host mirrors of config state (member mask / group size): the
@@ -193,6 +202,7 @@ class PaxosManager:
         # lazily at the next build
         self._in_req = np.zeros((self.R, self.P, self.G), np.int32)
         self._in_stp = np.zeros((self.R, self.P, self.G), bool)
+        self._inbox_alive = self.alive.copy()  # liveness of the last inbox
         self._placed: list = []
         #: pipelined mode: the last dispatched tick, completed at the start
         #: of the next
@@ -213,6 +223,8 @@ class PaxosManager:
         # control-plane threads call the admin/propose API while a driver
         # loops on tick(); one reentrant lock serializes them
         self.lock = ContendedLock()
+        if self.wal is not None:
+            self.wal.attach(self)
 
     # ------------------------------------------------------ device helpers
     def _dev_exec_np(self) -> np.ndarray:
@@ -252,6 +264,8 @@ class PaxosManager:
         self._stopped_rows.discard(row)
         self._stopped_np[row] = False
         self._last_active[row] = self.tick_num
+        if self.wal is not None:
+            self.wal.log_create(name, members, epoch)
         return True
 
     def create_paxos_instances(
@@ -288,6 +302,9 @@ class PaxosManager:
                 self._stopped_np[rows] = False
                 self._stopped_rows.difference_update(int(r) for r in rows)
                 self._last_active[rows] = self.tick_num
+                if self.wal is not None:
+                    # one fsync for the whole batch, not one per name
+                    self.wal.log_creates(take, list(members), epoch)
             made = len(take)
         for n in rest:  # overflow: single-create path (may evict)
             if self.create_paxos_instance(n, list(members), epoch):
@@ -317,6 +334,8 @@ class PaxosManager:
         """kill/cremation analog."""
         if name in self._paused:
             del self._paused[name]
+            if self.wal is not None:
+                self.wal.log_remove(name)
             return True
         row = self.rows.row(name)
         if row is None:
@@ -339,6 +358,8 @@ class PaxosManager:
                 self.stats["failed_requests"] += self.bulk.fail(gone)
         self._stopped_rows.discard(row)
         self._stopped_np[row] = False
+        if self.wal is not None:
+            self.wal.log_remove(name)
         return True
 
     @_locked
@@ -441,6 +462,8 @@ class PaxosManager:
             paused.append(name)
         if paused:
             self._do_pause(paused)
+            if self.wal is not None:
+                self.wal.log_pause(paused)
         return paused
 
     def _do_pause(self, names: List[str]) -> None:
@@ -483,6 +506,8 @@ class PaxosManager:
             self._stopped_np[row] = True
         self._last_active[row] = self.tick_num
         self.stats["unpaused"] += 1
+        if self.wal is not None:
+            self.wal.log_unpause(name)
         return row
 
     def paused_count(self) -> int:
@@ -505,12 +530,16 @@ class PaxosManager:
         staged when it passes is dropped at intake with callback
         ``(RID_EXPIRED, None)``.  ``cls``: traffic class; CLS_CLIENT
         proposes are refused with ``(RID_BUSY, None)`` while the intake
-        governor sheds, CLS_CONTROL (default) is never governed.
+        governor sheds, CLS_CONTROL (default) is never governed.  While
+        the WAL cannot make writes durable (failed, or below its free-space
+        watermark) every propose is refused with ``(-1, None)``.
 
         Returns the request id, or None if the group is unknown (or fenced
         by a stop).  The common case takes NO manager lock: the request is
         staged into a thread-safe deque the next tick drains.
         """
+        if self.wal is not None and not self.wal.accepting_writes():
+            return self._shed_propose(callback)
         if (cls != _overload.CLS_CONTROL and self.overload is not None
                 and not self.overload.admit(cls)):
             return self._shed_busy(callback, cls)
@@ -531,6 +560,20 @@ class PaxosManager:
         if self.reqtrace.enabled:
             self.reqtrace.event(rid, "staged", name=name)
         return rid
+
+    @_locked
+    def _shed_propose(self, callback):
+        """Storage low-watermark / failed WAL: refuse new writes with the
+        retriable failure convention (response None) while reads and the
+        already-admitted pipeline keep serving.  The disk-full case clears
+        itself once space returns; the failed case fail-stops the node at
+        the next tick anyway."""
+        self.wal.note_shed()
+        if callback is not None:
+            self._held_callbacks.append((callback, -1, None))
+        self.stats["shed_requests"] += 1
+        self.stats["failed_requests"] += 1
+        return None
 
     @_locked
     def _shed_busy(self, callback, cls: int = _overload.CLS_CLIENT):
@@ -647,7 +690,18 @@ class PaxosManager:
         ``cb(rid, response_or_None)`` list aligned with ``rows``.
         ``batch_sink``: optional columnar completion ``sink(offsets,
         responses)`` for the admitted block (offsets = rid - first rid).
+        Callbacks and sinks fire only once the WAL covering the request's
+        tick is fsynced (log-before-respond).
         """
+        if self.wal is not None and not self.wal.accepting_writes():
+            # storage low-watermark / failed WAL: whole batch sheds with
+            # the transient-backpressure code (-2, plain retry); no
+            # callback fires
+            self.wal.note_shed()
+            n = len(rows)
+            self.stats["shed_requests"] += n
+            self.stats["failed_requests"] += n
+            return np.full(n, -2, np.int64)
         if (cls == _overload.CLS_CLIENT and self.overload is not None
                 and not self.overload.admit(cls)):
             n = len(rows)
@@ -789,7 +843,10 @@ class PaxosManager:
 
     def bulk_response(self, rid: int):
         """Response payload of an entry-replica-completed bulk request;
-        None once freed (or unknown)."""
+        None once freed (or unknown), and None until the WAL covering the
+        request's tick is fsynced."""
+        if self.wal is not None and not self.wal.is_synced():
+            return None
         s = self.bulk
         if s is None:
             return None
@@ -888,11 +945,14 @@ class PaxosManager:
                 placed.append((row, take))
         self._placed = placed
         self._place_bulk(req, stp, placed)
+        # the liveness view this inbox carries (journaled by the WAL from
+        # the host copy: the device copy is never read back)
+        self._inbox_alive = self.alive.copy()
         # device copies: the staging buffers are mutated next tick
         dev = self.device
         return TickInbox(torch.from_numpy(req).to(dev, copy=True),
                          torch.from_numpy(stp).to(dev, copy=True),
-                         torch.from_numpy(self.alive).to(dev, copy=True))
+                         torch.from_numpy(self._inbox_alive).to(dev))
 
     def _place_bulk(self, req, stp, placed) -> None:
         """Vectorized placement of the bulk queue into the staging arrays:
@@ -1068,6 +1128,9 @@ class PaxosManager:
             self._sync_device()
             pc.mark(_BLOCKING_PHASE)
         pc.mark("dispatch")
+        if self.wal is not None:
+            self.wal.log_inbox(self.tick_num, self._inbox_alive)
+        pc.mark("wal_fsync")
         self.tick_num += 1
         if self.cfg.paxos.pipeline_ticks:
             # deferred unpack: the device->host copy of tick N happens at
@@ -1082,8 +1145,14 @@ class PaxosManager:
                 # outbox moments ago; hand that stashed result out
                 out, self._drained_out = self._drained_out, None
             self._pending_out = (packed, placed, bulk_placed, frontier)
+            # a due checkpoint must cover on-host effects of every tick the
+            # device state contains — drain the one-tick pipeline first
+            if self.wal is not None and self.wal.checkpoint_due():
+                self.drain_pipeline()
         else:
             out = self._complete_tick(packed, placed, bulk_placed, frontier)
+        if self.wal is not None:
+            self.wal.maybe_checkpoint()
         pc.end()
         return out
 
@@ -1130,9 +1199,12 @@ class PaxosManager:
             self._drained_out = self._complete_tick(*prev)
 
     def _flush_callbacks(self) -> None:
-        """Release client responses (no journal in this slice, so every
-        completed tick is as durable as it gets)."""
+        """Release client responses only once the WAL covering their tick is
+        durable (log-before-respond; with sync_every_ticks > 1 responses ride
+        the next group commit)."""
         if not self._held_callbacks:
+            return
+        if self.wal is not None and not self.wal.is_synced():
             return
         held, self._held_callbacks = self._held_callbacks, []
         for cb, rid, resp in held:
@@ -1516,6 +1588,9 @@ class PaxosManager:
         ckpt = self.apps[donor].checkpoint(name)
         donor_exec = int(exec_slot[donor])
         donor_status = int(self.state.status[donor, row])
+        if self.wal is not None:
+            self.wal.log_sync(r, name, int(donor), donor_exec, donor_status,
+                              ckpt)
         self._apply_sync_values(r, int(row), name, donor_exec, donor_status,
                                 ckpt, old_exec=int(exec_slot[r]))
         self.stats["checkpoint_transfers"] += 1
@@ -1533,6 +1608,9 @@ class PaxosManager:
         if donor_exec <= old_exec:
             return False
         ckpt = self.apps[donor].checkpoint(name)
+        if self.wal is not None:
+            self.wal.log_sync(r, name, int(donor), int(donor_exec),
+                              int(donor_status), ckpt)
         self._apply_sync_values(r, int(row), name, int(donor_exec),
                                 int(donor_status), ckpt,
                                 old_exec=int(old_exec))

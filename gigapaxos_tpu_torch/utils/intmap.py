@@ -59,3 +59,32 @@ class RowAllocator:
 
     def items(self):
         return self._name_to_row.items()
+
+    def snapshot_free_rows(self) -> list:
+        """The free-list in verbatim LIFO order (the snapshot format)."""
+        return list(self._free)
+
+    def restore(self, rows: Dict[str, int], free_rows=None) -> None:
+        """Reset to a snapshot: name->row map plus the VERBATIM free-list.
+
+        The LIFO order of ``free_rows`` must survive recovery — journal
+        replay re-allocates rows with ``pop()`` and row-addressed tick
+        records only land correctly if replay allocates the same rows the
+        live run did.  ``free_rows=None`` (snapshots without a free list)
+        reconstructs best-effort in the initial descending order.  A free
+        list of a partitioned allocator (register rows past ``capacity``)
+        is refused: register groups come with a later slice of the port.
+        """
+        if free_rows is not None and any(r >= self.capacity
+                                         for r in free_rows):
+            raise NotImplementedError(
+                "register-plane rows in the snapshot's free list (the "
+                "register slice of the port)")
+        self._name_to_row = dict(rows)
+        self._row_to_name = {row: name for name, row in rows.items()}
+        if free_rows is not None:
+            self._free = list(free_rows)
+        else:
+            used = set(rows.values())
+            self._free = [r for r in range(self.capacity - 1, -1, -1)
+                          if r not in used]

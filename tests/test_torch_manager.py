@@ -289,7 +289,7 @@ def test_bulk_compact_pipelined_with_crash_and_repair(pipeline):
 @pytest.mark.parametrize("option,value", [
     ("register_groups", 8), ("read_leases", True), ("group_health", True),
     ("device_app", True), ("mesh_devices", 2), ("fast_reelection", True),
-    ("spill_dir", "spill"),
+    ("emulate_unreplicated", True),
 ])
 def test_unported_options_raise(option, value):
     cfg = tcfg.GigapaxosTpuConfig()
@@ -300,12 +300,20 @@ def test_unported_options_raise(option, value):
                           device="cpu")
 
 
-def test_wal_raises_and_cuda_default_needs_card(monkeypatch):
+def test_wal_raises_and_cuda_default_needs_card(monkeypatch, tmp_path):
+    """A durable manager still refuses an unported plane (the WAL is
+    ported; register groups are not), and without a card the CUDA
+    default raises."""
+    from gigapaxos_tpu_torch.wal.logger import PaxosLogger
+
     cfg = tcfg.GigapaxosTpuConfig()
     cfg.paxos.max_groups = 8
+    cfg.paxos.register_groups = 8
     apps = [trep.NoopApp() for _ in range(3)]
-    with pytest.raises(NotImplementedError):
-        tmgr.PaxosManager(cfg, 3, apps, wal=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="register"):
+        tmgr.PaxosManager(cfg, 3, apps, device="cpu",
+                          wal=PaxosLogger(str(tmp_path), native=False))
+    cfg.paxos.register_groups = 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmgr.PaxosManager(cfg, 3, apps)
