@@ -32,12 +32,21 @@ the kernels are built for sm_90a).  It
    replica, the first ticks' journal byte-equal to a CPU run);
    ``recovery-1M-sparse`` journals 8 busy groups on a 2^20-group plane,
    crashes, recovers through the sparse batched replay, and serves a probe.
-   Each replayed tick must launch 5 gathers and 1 match.
+   Each replayed tick must launch 5 gathers and 1 match;
+6. cluster phase: the port's ``InProcessCluster`` with 5 actives and 3
+   reconfigurators on loopback ports, 2^20 rows on each plane (``KVApp``,
+   3 replicas per name), driven through ``ReconfigurableAppClient``:
+   4,096 names created in batches, one PUT each through batched sends,
+   every name read back (256 of them one at a time for latency), 16 names
+   reconfigured onto a rotated 3-of-5 set, 16 deleted, the survivors read
+   back again and their app states held equal at every member.  Every tick
+   of both planes must launch 5 gathers and 1 match.
 
 The kernels phase also holds both kernels against their plain versions at
-the narrow widths sparse replay gives them (A=8 groups, W=4) and at the
+the narrow widths sparse replay gives them (A=8 groups, W=4), at the
 128k deployment's shapes (G=2^17, W=8, P=2) that the manager phase, the
-durable manager and its dense replay give them.
+durable manager and its dense replay give them, and at the cluster's two
+planes (R=5 and R=3, W=4, P=4, G=2^20).
 
 It prints the card, the build, each phase's numbers, one ``{"kernels": ...}``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -56,6 +65,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -288,20 +298,23 @@ def path_launches(pg, path: str, n_ticks: int) -> dict:
     return got
 
 
-#: (W, G, P, label prefix) of the shapes the other paths give the kernels:
-#: the recovery-1M-sparse leg's 8 active groups at W=4 (sparse replay),
-#: and the 128k deployment at P=2 (the manager phase, the durable manager
-#: and its dense replay)
-REPLAY_SHAPES = ((4, 8, 4, "replay A=8 W=4: "),
-                 (8, 1 << 17, 2, "replay/manager 128k: "))
+#: (R, W, G, P, label prefix) of the shapes the other paths give the
+#: kernels: the recovery-1M-sparse leg's 8 active groups at W=4 (sparse
+#: replay), the 128k deployment at P=2 (the manager phase, the durable
+#: manager and its dense replay), and the cluster's two 2^20-row planes at
+#: the default W=4, P=4 (5 actives, 3 reconfigurators)
+PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
+               (3, 8, 1 << 17, 2, "replay/manager 128k: "),
+               (5, 4, 1 << 20, 4, "cluster AR R=5 W=4: "),
+               (3, 4, 1 << 20, 4, "cluster RC R=3 W=4: "))
 
 
 def kernels_phase(torch, pg, dev, R, W, P, G, bw):
     flush = L2Flush(torch, dev)
     rows = []
     cases = kernel_cases(torch, dev, R, W, P, G)
-    for w, g, p, prefix in REPLAY_SHAPES:
-        for c in kernel_cases(torch, dev, R, w, p, g):
+    for r, w, g, p, prefix in PATH_SHAPES:
+        for c in kernel_cases(torch, dev, r, w, p, g):
             c.label, c.tick_set = prefix + c.label, None
             cases.append(c)
     for c in cases:
@@ -887,6 +900,220 @@ def wal_phase(torch, dev, R, W, manager_ms):
     return dense, sparse
 
 
+# ------------------------------------------------------------ cluster phase
+
+def cluster_cfg(G):
+    """TESTReconfigurationMain's shape (``benchmarks/reconfig_rate.py``,
+    ``tests/test_reconfiguration_e2e.py``): 5 actives and 3 reconfigurators
+    on loopback ports, ``G`` rows on each plane, the default window,
+    proposals per tick and exec budget, the at-scale outbox settings."""
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+
+    cfg = GigapaxosTpuConfig()
+    cfg.paxos.max_groups = G
+    cfg.paxos.compact_outbox = True
+    cfg.paxos.pipeline_ticks = True
+    for i in range(5):
+        cfg.nodes.actives[f"AR{i}"] = ("127.0.0.1", 0)
+    for i in range(3):
+        cfg.nodes.reconfigurators[f"RC{i}"] = ("127.0.0.1", 0)
+    return cfg
+
+
+class Responses:
+    """Collects the per-request response packets of batched sends."""
+
+    def __init__(self):
+        self.got = {}
+        self.cv = threading.Condition()
+
+    def __call__(self, p):
+        with self.cv:
+            self.got[p["rid"]] = p
+            self.cv.notify_all()
+
+    def wait(self, rids, timeout_s):
+        deadline = time.monotonic() + timeout_s
+        with self.cv:
+            while not all(r in self.got for r in rids):
+                left = deadline - time.monotonic()
+                check(left > 0, f"{sum(r not in self.got for r in rids)} "
+                                "batched responses never arrived")
+                self.cv.wait(left)
+            return [self.got.pop(r) for r in rids]
+
+
+def batch_round(client, items, timeout_s=120.0):
+    """``items`` through ``send_request_batch``; the response bodies in
+    item order (None where the request was refused)."""
+    from gigapaxos_tpu_torch.reconfiguration import packets as pkt
+
+    sink = Responses()
+    rids = client.send_request_batch(items, sink)
+    return [pkt.b64d(p["response"]) or b"" if p.get("ok") else None
+            for p in sink.wait(rids, timeout_s)]
+
+
+def plane_tick_ms(torch, dev, m, n):
+    """Host milliseconds of ``n`` ticks of one plane run back to back with
+    its driver held off (manager lock) and the other plane's driver held
+    off by the caller, each tick ending in a device sync."""
+    out = []
+    with m.lock:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            m.tick()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out.append((time.perf_counter() - t0) * 1e3)
+        m.drain_pipeline()
+    return statistics.median(out)
+
+
+def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
+                  put_batch=512, serial=256, n_reconf=16, n_delete=16):
+    """The port's ``InProcessCluster`` driven through its client: create
+    ``n_names`` names, PUT one value each, read every one back (all through
+    batches, ``serial`` of them one at a time for latency), reconfigure
+    ``n_reconf`` onto a rotated 3-of-5 active set, delete ``n_delete``, read
+    the survivors back again and hold every member's app state equal."""
+    from gigapaxos_tpu_torch.client import ClientError, ReconfigurableAppClient
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.node import InProcessCluster
+
+    names = [f"svc{i}" for i in range(n_names)]
+    value = {n: f"{n}-v1".encode() for n in names}
+    out = {"G": G, "actives": 5, "reconfigurators": 3, "names": n_names}
+    pg.reset_launches()
+    t_start = time.perf_counter()
+    cl = InProcessCluster(cluster_cfg(G), KVApp, device=dev)
+    client = ReconfigurableAppClient(cl.cfg.nodes)
+    try:
+        out["start_s"] = time.perf_counter() - t_start
+        for m in (cl.manager, cl.rc_manager):
+            for f, t in zip(m.state._fields, m.state):
+                check(t.device.type == dev.type,
+                      f"state.{f} of plane {m._ov_node} is on {t.device}")
+        t0 = time.perf_counter()
+        for k in range(0, n_names, create_batch):
+            resp = client.create_batch(names[k:k + create_batch],
+                                       timeout=120)
+            check(resp["ok"], f"create batch at {k} failed: "
+                              f"{str(resp)[:300]}")
+        out["names_per_s"] = n_names / (time.perf_counter() - t0)
+
+        t0 = time.perf_counter()
+        refused = []
+        for k in range(0, n_names, put_batch):
+            chunk = names[k:k + put_batch]
+            got = batch_round(client,
+                              [(n, b"PUT k " + value[n]) for n in chunk])
+            refused += [n for n, r in zip(chunk, got) if r != b"OK"]
+        out["put_req_per_s"] = n_names / (time.perf_counter() - t0)
+        out["put_refused_in_batches"] = len(refused)
+        for n in refused:  # a refused PUT is retried until acked
+            check(client.request(n, b"PUT k " + value[n]) == b"OK",
+                  f"PUT {n} not acked")
+
+        def read_back(which, what):
+            for k in range(0, len(which), put_batch):
+                chunk = which[k:k + put_batch]
+                got = batch_round(client, [(n, b"GET k") for n in chunk])
+                for n, r in zip(chunk, got):
+                    check(r == value[n], f"{what}: GET {n} gave {r!r}")
+
+        t0 = time.perf_counter()
+        read_back(names, "read back")
+        out["get_req_per_s"] = n_names / (time.perf_counter() - t0)
+        lat = []
+        for n in names[:serial]:
+            t0 = time.perf_counter()
+            r = client.request(n, b"GET k")
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(r == value[n], f"serial GET {n} gave {r!r}")
+        out["serial_requests"] = serial
+        out["serial_p50_ms"] = float(np.percentile(lat, 50))
+        out["serial_p99_ms"] = float(np.percentile(lat, 99))
+
+        pool = sorted(cl.cfg.nodes.active_ids())
+        secs = []
+        for n in names[:n_reconf]:
+            cur = sorted(client.request_actives(n))
+            i = pool.index(cur[0])
+            new = sorted(pool[(i + 1 + j) % len(pool)] for j in range(3))
+            check(new != cur, f"rotation of {n} is its current set")
+            t0 = time.perf_counter()
+            resp = client.reconfigure(n, new, timeout=120)
+            secs.append(time.perf_counter() - t0)
+            check(resp["ok"], f"reconfigure {n} failed: {resp}")
+            check(sorted(client.request_actives(n, force=True)) == new,
+                  f"{n} is not on {new} after its reconfiguration")
+        out["reconfigurations"] = n_reconf
+        out["s_per_reconfiguration"] = statistics.mean(secs)
+
+        gone = names[n_reconf:n_reconf + n_delete]
+        for n in gone:
+            check(client.delete(n, timeout=120)["ok"], f"delete {n} failed")
+            try:
+                client.request_actives(n, force=True)
+                check(False, f"deleted {n} still resolves")
+            except ClientError:
+                pass
+        out["deletes"] = n_delete
+        live = [n for n in names if n not in set(gone)]
+        read_back(live, "read back after reconfigurations and deletes")
+
+        # every member executes what its group decided: poll until the
+        # pipelined planes have completed their last ticks
+        rdb = cl.reconfigurators["RC0"].db
+        deadline = time.monotonic() + 60
+        while True:
+            with cl.manager.lock:
+                cl.manager.drain_pipeline()
+                moved, differ = 0, []
+                for n in live:
+                    rec = rdb.get(n)
+                    moved += rec.epoch
+                    want = json.dumps({"k": value[n].decode()}).encode()
+                    differ += [(n, node) for node in rec.actives
+                               if cl.manager.apps[cl.coordinator.slot_of(
+                                   node)].checkpoint(f"{n}#{rec.epoch}")
+                               != want]
+            if not differ or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        check(not differ, f"app states differ at {differ[:8]}")
+        check(moved == n_reconf, f"{moved} epochs advanced, "
+                                 f"{n_reconf} reconfigured")
+        for drv in (cl.driver, cl.rc_driver):
+            check(drv._thread.is_alive() and drv.fatal is None,
+                  f"a tick driver stopped: {drv.fatal}")
+        # each plane's own tick, the other held off
+        with cl.rc_manager.lock:
+            out["ar_tick_ms_alone"] = plane_tick_ms(torch, dev, cl.manager, 10)
+        with cl.manager.lock:
+            out["rc_tick_ms_alone"] = plane_tick_ms(torch, dev,
+                                                    cl.rc_manager, 10)
+    finally:
+        client.close()
+        cl.close()
+    elapsed = time.perf_counter() - t_start
+    ticks = {"ar": cl.manager.tick_num, "rc": cl.rc_manager.tick_num}
+    out["ticks"] = ticks
+    out["seconds"] = elapsed
+    for plane in ("ar", "rc"):
+        out[f"{plane}_ms_per_tick"] = elapsed / ticks[plane] * 1e3
+        out[f"{plane}_host_phases"] = host_phases(plane)
+    ar_dev = ticks["ar"] * out["ar_tick_ms_alone"]
+    rc_dev = ticks["rc"] * out["rc_tick_ms_alone"]
+    out["rc_share_of_tick_time"] = rc_dev / (ar_dev + rc_dev)
+    out["launches"] = None
+    if dev.type == "cuda":  # the plain versions run on the CPU
+        out["launches"] = path_launches(pg, "cluster",
+                                        ticks["ar"] + ticks["rc"])
+    return out
+
+
 # ------------------------------------------------------ profile (opt-in)
 
 def profile_tick(torch, dev, R, W, P, G, exec_budget, lag_budget=1024,
@@ -1016,6 +1243,10 @@ def main(argv=None) -> int:
         # the replay path: both legs' batched recoveries
         launches["replay"] = {k: dense["launches"][k] + sparse["launches"][k]
                               for k in dense["launches"]}
+        clu = cluster_phase(torch, pg, dev, 1 << 20)
+        clu["card"] = card
+        launches["cluster"] = clu["launches"]
+        print("cluster " + json.dumps(clu), flush=True)
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)

@@ -1,9 +1,9 @@
-"""Config sections the Mode A manager reads.
+"""Config sections the Mode A manager and its control plane read.
 
 Copies of the reference's tuning dataclasses, with the same fields and the
 same defaults, so one set of settings configures either package.  Options
 whose planes have not been ported yet (register groups, leases, the health
-plane, the device app, the mesh, fast re-election, the WAL, disk spill)
+plane, the device app, the mesh, fast re-election, placement)
 keep their fields: the manager raises ``NotImplementedError`` when one is
 set, instead of ignoring it.
 """
@@ -11,6 +11,7 @@ set, instead of ignoring it.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
 
 
 @dataclass
@@ -373,9 +374,83 @@ class PlacementConfig:
 
 
 @dataclass
+class FailureDetectionConfig:
+    """FailureDetection.java:63-76 analog (host-level, per node pair)."""
+
+    ping_interval_s: float = 0.1  # max 1 ping / 100ms, FailureDetection.java:65-66
+    timeout_s: float = 3.0
+    coordinator_failover_grace_ticks: int = 2
+    # Adaptive timeout (Jacobson/TCP-RTO style): per-node EWMA of ping
+    # inter-arrival gaps; effective timeout = max(timeout_s,
+    # adaptive_beta * (mean + 4 * meandev)).  Jittery WAN links then get a
+    # longer fuse than the static floor, so transient delay spikes don't
+    # flap the alive mask and trigger dueling-coordinator churn; quiet
+    # links keep the configured floor.
+    adaptive: bool = False
+    adaptive_beta: float = 1.5
+    adaptive_gain: float = 0.125  # EWMA gain for mean and mean deviation
+
+
+@dataclass
+class SSLConfig:
+    """Transport security (SSL stack analog,
+    nio/SSLDataProcessingWorker.java:59: CLEAR/SERVER_AUTH/MUTUAL_AUTH,
+    selected per deployment like ReconfigurableNode.java:298).
+
+    Properties keys: ``ssl.mode=mutual_auth``, ``ssl.certfile=...``,
+    ``ssl.keyfile=...``, ``ssl.cafile=...``.
+    """
+
+    mode: str = "clear"  # clear | server_auth | mutual_auth
+    certfile: str = ""
+    keyfile: str = ""
+    cafile: str = ""
+
+    def __post_init__(self) -> None:
+        if self.mode not in ("clear", "server_auth", "mutual_auth"):
+            raise ValueError(f"bad ssl.mode {self.mode!r}")
+
+
+@dataclass
+class NodeConfig:
+    """Cluster topology: node id -> (host, port).
+
+    Mirrors the ``active.*`` / ``reconfigurator.*`` lines of
+    ``gigapaxos.properties`` so reference fixtures translate directly.
+    """
+
+    actives: Dict[str, Tuple[str, int]] = field(default_factory=dict)
+    reconfigurators: Dict[str, Tuple[str, int]] = field(default_factory=dict)
+    # Explicit replica-slot order for Mode B universes (boot topology +
+    # runtime-added nodes in committed order; slots of removed nodes are
+    # retained, never recycled).  Empty = sorted actives — correct ONLY for
+    # clusters whose node set never changed.  After ANY add/remove, a node
+    # restoring without its own WAL must boot with the committed order
+    # (properties key ``universe=A0,A1,...``, returned by the add_active
+    # response) or its slot indices silently diverge from the incumbents'.
+    # Nodes with an intact WAL recover their member list from it.
+    universe: List[str] = field(default_factory=list)
+
+    def active_ids(self):
+        return sorted(self.actives)
+
+    def universe_order(self):
+        return list(self.universe) if self.universe else sorted(self.actives)
+
+    def reconfigurator_ids(self):
+        return sorted(self.reconfigurators)
+
+
+@dataclass
 class GigapaxosTpuConfig:
     paxos: PaxosTuning = field(default_factory=PaxosTuning)
     placement: PlacementConfig = field(default_factory=PlacementConfig)
+    fd: FailureDetectionConfig = field(default_factory=FailureDetectionConfig)
+    ssl: SSLConfig = field(default_factory=SSLConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
+    nodes: NodeConfig = field(default_factory=NodeConfig)
+    # Use the C++ journal backend (csrc/journal.cc) for planes opened from
+    # a WAL directory.
+    native_journal: bool = True
 

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -28,6 +29,9 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+#: one build at a time: the planes of a cluster tick on threads of their
+#: own, and two builds of one source would share a temporary file
+_build_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -70,8 +74,9 @@ def build(name: str) -> Optional[str]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        build(name)
-        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+    with _build_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build(name)
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib

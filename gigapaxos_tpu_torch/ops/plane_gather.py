@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Sequence, Tuple
 
 import torch
@@ -34,6 +35,8 @@ from . import cuda_build
 
 #: kernel launches since the last :func:`reset_launches` (CUDA path only)
 launches = {"gather_planes": 0, "match_planes": 0}
+#: the planes of one cluster tick on threads of their own
+_launches_lock = threading.Lock()
 
 #: element size in bytes of each dtype the kernels take
 KERNEL_DTYPES = {torch.int32: 4, torch.bool: 1}
@@ -50,8 +53,9 @@ MAX_LANES = (2**31 - 1) // MAX_PLANES
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,7 +123,8 @@ def _launch(fn, name: str, arrs, outs, *args) -> None:
         rc = fn(ins, ous, elem, k, *args, stream)
     if rc != 0:
         raise RuntimeError(f"gp_{name} launch failed (code {rc})")
-    launches[name] += 1
+    with _launches_lock:
+        launches[name] += 1
 
 
 # ----------------------------------------------------------- gather_planes

@@ -39,6 +39,7 @@ from .. import overload as _overload
 from ..config import GigapaxosTpuConfig
 from ..device import resolve_device
 from ..models.replicable import Replicable
+from ..obs.metrics import registry as _obsreg
 from ..obs.phase import BLOCKING_PHASE as _BLOCKING_PHASE
 from ..obs.phase import phase_clock as _phase_clock
 from ..ops.tick import (CompactHostOutbox, HostOutbox, TickInbox,
@@ -81,7 +82,8 @@ def _unported(cfg: GigapaxosTpuConfig) -> List[str]:
         (p.device_app, "paxos.device_app (the device-KV slice)"),
         (p.mesh_devices, "paxos.mesh_devices (the mesh slice)"),
         (p.fast_reelection, "paxos.fast_reelection (the Mode B slice)"),
-        (cfg.placement.enabled, "placement.enabled (the control-plane slice)"),
+        (cfg.placement.enabled,
+         "placement.enabled (the placement slice, with the mesh)"),
         (p.emulate_unreplicated or p.lazy_propagation,
          "paxos.emulate_unreplicated/lazy_propagation (measurement "
          "baselines, with the benchmark slice)"),
@@ -129,6 +131,9 @@ class PaxosManager:
         )  # row -> rids waiting for intake
         # callbacks released at the end of each completed tick
         self._held_callbacks: list = []
+        #: scope openers run around each callback flush; each returns a
+        #: closer (the active replica's per-tick client egress coalescing)
+        self._flush_scope_hooks: list = []
         # per (replica, row) dedup of executed request ids (bounded)
         self._seen: Dict[tuple, collections.OrderedDict] = \
             collections.defaultdict(collections.OrderedDict)
@@ -143,6 +148,10 @@ class PaxosManager:
             if cfg.overload.enabled else None
         )
         self._ov_node = spill_ns or "-"
+        self._reads_fallback_c = _obsreg().counter(
+            "reads_fallback_total",
+            help="reads that fell back to a consensus round (no/invalid "
+                 "lease or non-quiescent group)", node=self._ov_node)
         self._stopped_rows: set[int] = set()
         # ---- pause (deactivation): name -> HotRestoreInfo; row freed ----
         # paused records beyond spill_cache page to spill_dir/<spill_ns>
@@ -514,6 +523,31 @@ class PaxosManager:
         return len(self._paused)
 
     # ---------------------------------------------------------------- propose
+    def read(
+        self,
+        name: str,
+        payload: bytes = b"",
+        callback: Optional[Callable[[int, bytes], None]] = None,
+        deadline: Optional[int] = None,
+    ) -> Optional[int]:
+        """Linearizable read: a CLS_READ propose through the ordered stream
+        (a classic consensus read).
+
+        ``payload`` must be side-effect-free under the app's ``execute``
+        (it executes at every member).  The callback fires ``(rid,
+        response)`` like propose's.  The lease-local branch, which answers
+        from the holder's app with no consensus round, comes with the lease
+        slice: ``read_leases`` is refused at construction until then.
+        """
+        if deadline is not None and _overload.expired(deadline):
+            _overload.count_expired("intake", self._ov_node)
+            if callback is not None:
+                callback(_overload.RID_EXPIRED, None)
+            return None
+        self._reads_fallback_c.inc()
+        return self.propose(name, payload, callback, deadline=deadline,
+                            cls=_overload.CLS_READ)
+
     def propose(
         self,
         name: str,
@@ -1207,8 +1241,13 @@ class PaxosManager:
         if self.wal is not None and not self.wal.is_synced():
             return
         held, self._held_callbacks = self._held_callbacks, []
-        for cb, rid, resp in held:
-            cb(rid, resp)
+        closers = [h() for h in self._flush_scope_hooks]
+        try:
+            for cb, rid, resp in held:
+                cb(rid, resp)
+        finally:
+            for c in closers:
+                c()
 
     def _process_outbox(self, out: HostOutbox, placed=None,
                         bulk_placed=None) -> None:

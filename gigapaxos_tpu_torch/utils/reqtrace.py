@@ -137,3 +137,37 @@ def tracer(ns: str) -> RequestTracer:
 # --------------------------------------------------------------------------
 # Cross-process tracing.
 #
+# The per-manager namespaces above merge hops only inside one process.  For
+# the serving-cell plane a request crosses processes (client -> edge cell ->
+# owner cell), so the client mints a process-independent trace id and stamps
+# it on the wire frame (``p["trace"]``, behind the client-side flag — see
+# ``client.trace``); every hop that sees the key records into the shared
+# ``x`` namespace of ITS process store.
+#
+# Recording at a hop is gated by the id's *presence*, not by the hop
+# process's GPTPU_REQTRACE — the client flag is the one switch, and the
+# bounded store caps memory either way.
+
+XNS = "x"
+
+_TID_LOCK = threading.Lock()
+_TID_NEXT = 0
+
+
+def new_trace_id() -> int:
+    """Process-unique 48-bit id: random 32-bit prefix per process (from the
+    pid + clock via os.urandom) x 16-bit sequence.  Fits in a JSON number."""
+    global _TID_NEXT
+    with _TID_LOCK:
+        _TID_NEXT += 1
+        seq = _TID_NEXT & 0xFFFF
+    prefix = int.from_bytes(os.urandom(4), "big")
+    return (prefix << 16) | seq
+
+
+def xtracer() -> RequestTracer:
+    """The cross-process view: always records (presence of a trace id on a
+    frame IS the flag; the stamping side is what GPTPU_REQTRACE gates)."""
+    t = RequestTracer(XNS)
+    t.enabled = True
+    return t

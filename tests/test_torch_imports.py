@@ -21,7 +21,9 @@ def _submodules():
 
 def test_import_loads_no_jax_and_no_reference_module():
     mods = ["gigapaxos_tpu_torch"] + _submodules()
-    assert "gigapaxos_tpu_torch.paxos.manager" in mods
+    for m in ("paxos.manager", "net.transport", "protocoltask.executor",
+              "reconfiguration.active_replica", "node", "client"):
+        assert f"gigapaxos_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
