@@ -40,13 +40,25 @@ the kernels are built for sm_90a).  It
    every name read back (256 of them one at a time for latency), 16 names
    reconfigured onto a rotated 3-of-5 set, 16 deleted, the survivors read
    back again and their app states held equal at every member.  Every tick
-   of both planes must launch 5 gathers and 1 match.
+   of both planes must launch 5 gathers and 1 match;
+7. planes phase, two legs: ``mixed-1M`` ticks register_bench.py's mixed
+   shape (2^17 log rows at W=8 beside 917,504 register rows at W=1) through
+   ``paxos_tick_health`` with one fresh request per group per tick, once
+   with the lease and health folds on and once with both off, the first
+   ticks held against the CPU; ``reads-128k`` runs read_bench.py's 95/5
+   closed loop on a durable 2^17 + 2^17 manager with leases and health on
+   (local reads), crashes it and recovers it through both replay arms,
+   then runs one round with leases off.  Every mixed tick must launch 10
+   gathers and 2 matches, and each leg reports the device's idle share
+   over a profiled window.
 
 The kernels phase also holds both kernels against their plain versions at
 the narrow widths sparse replay gives them (A=8 groups, W=4), at the
 128k deployment's shapes (G=2^17, W=8, P=2) that the manager phase, the
 durable manager and its dense replay give them, and at the cluster's two
-planes (R=5 and R=3, W=4, P=4, G=2^20).
+planes (R=5 and R=3, W=4, P=4, G=2^20), and at the planes phase's shapes
+(the W=1 register planes at G=917,504 and G=2^17, the log planes at W=8,
+G=2^17, P=1 and P=4).
 
 It prints the card, the build, each phase's numbers, one ``{"kernels": ...}``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -288,13 +300,15 @@ def edge_cases(torch, pg, dev):
     return n
 
 
-def path_launches(pg, path: str, n_ticks: int) -> dict:
+def path_launches(pg, path: str, n_ticks: int, planes: int = 1) -> dict:
     """Read the launch counts of one main-path run (set to 0 just before
-    it): every tick launches 5 gathers (one per set of arrays that share an
-    index) and 1 match."""
+    it): every tick of every state plane launches 5 gathers (one per set of
+    arrays that share an index) and 1 match; a mixed tick has two planes."""
     got = dict(pg.launches)
-    check(got == {"gather_planes": 5 * n_ticks, "match_planes": n_ticks},
-          f"{path} phase: launches over {n_ticks} ticks: {got}")
+    check(got == {"gather_planes": 5 * planes * n_ticks,
+                  "match_planes": planes * n_ticks},
+          f"{path} phase: launches over {n_ticks} ticks of {planes} "
+          f"plane(s): {got}")
     return got
 
 
@@ -306,7 +320,11 @@ def path_launches(pg, path: str, n_ticks: int) -> dict:
 PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
                (3, 8, 1 << 17, 2, "replay/manager 128k: "),
                (5, 4, 1 << 20, 4, "cluster AR R=5 W=4: "),
-               (3, 4, 1 << 20, 4, "cluster RC R=3 W=4: "))
+               (3, 4, 1 << 20, 4, "cluster RC R=3 W=4: "),
+               (3, 8, 1 << 17, 1, "mixed log W=8 P=1: "),
+               (3, 1, 917_504, 1, "mixed reg W=1 P=1: "),
+               (3, 8, 1 << 17, 4, "reads log 128k P=4: "),
+               (3, 1, 1 << 17, 4, "reads reg W=1 128k P=4: "))
 
 
 def kernels_phase(torch, pg, dev, R, W, P, G, bw):
@@ -628,12 +646,21 @@ def kv_leg(torch, dev, R, W, n_groups=8):
 # ---------------------------------------------------------------- wal phase
 
 def assert_same_manager(torch, a, b, what):
-    """Two managers are equal field by field: device state, host exec
+    """Two managers are equal field by field: device state (the register
+    plane and the lease columns too), the host lease mirror, host exec
     watermark, apps, rows, request records, queues, tick and rid
     counters."""
-    for name, x, y in zip(a.state._fields, a.state, b.state):
-        check(x.dtype == y.dtype and torch.equal(x, y.to(x.device)),
-              f"{what}: state.{name} differs")
+    for plane in ("state", "rstate", "_lease", "_rlease"):
+        pa, pb = getattr(a, plane), getattr(b, plane)
+        check((pa is None) == (pb is None), f"{what}: {plane} present once")
+        for name, x, y in zip(pa._fields if pa is not None else (),
+                              pa or (), pb or ()):
+            check(x.dtype == y.dtype and torch.equal(x, y.to(x.device)),
+                  f"{what}: {plane}.{name} differs")
+    check((a._lease_np is None and b._lease_np is None)
+          or np.array_equal(a._lease_np, b._lease_np),
+          f"{what}: lease mirror differs")
+    check(a._lease_clock == b._lease_clock, f"{what}: lease clock differs")
     check(np.array_equal(a._host_exec, b._host_exec),
           f"{what}: host exec watermark differs")
     for r, (x, y) in enumerate(zip(a.apps, b.apps)):
@@ -655,10 +682,11 @@ def assert_same_manager(torch, a, b, what):
           f"{a._next_rid}/{b._next_rid}")
 
 
-def timed_recover(torch, pg, dev, cfg, R, apps, log_dir, mode, from_tick):
+def timed_recover(torch, pg, dev, cfg, R, apps, log_dir, mode, from_tick,
+                  planes=1):
     """``recover`` on the card with the launch counts set to 0 just
-    before it; each replayed tick must launch 5 gathers and 1 match.
-    Returns (manager, seconds, launches)."""
+    before it; each replayed tick must launch 5 gathers and 1 match per
+    state plane.  Returns (manager, seconds, launches)."""
     from gigapaxos_tpu_torch.wal.logger import recover
 
     pg.reset_launches()
@@ -670,7 +698,8 @@ def timed_recover(torch, pg, dev, cfg, R, apps, log_dir, mode, from_tick):
     dt = time.perf_counter() - t0
     got = None
     if dev.type == "cuda":  # the plain versions run on the CPU
-        got = path_launches(pg, f"replay ({mode})", m.tick_num - from_tick)
+        got = path_launches(pg, f"replay ({mode})", m.tick_num - from_tick,
+                            planes)
     check(m.wal.backend == "native", "recovery did not open the native "
                                      "journal")
     return m, dt, got
@@ -1114,6 +1143,448 @@ def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
     return out
 
 
+# ------------------------------------------------------------- planes phase
+
+#: benchmarks/register_bench.py's dec_per_s_1m_mixed shape: 2^17 log rows
+#: at W=8 beside 917,504 register rows (W=1), 2^20 groups in all
+MIXED_LOG, MIXED_REG = 1 << 17, 917_504
+#: leases 64/8 (read_bench.py), health top-K 8 and wedge 32 (the defaults)
+LEASE_TICKS, LEASE_MARGIN, HEALTH_TOPK, HEALTH_WEDGE = 64, 8, 8, 32
+
+
+def _dev_ms(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+
+def idle_window(torch, dev, fn, n_top=12):
+    """Run ``fn`` under the profiler, device activity only (the kernel and
+    copy records: host-op records would slow the host side of the window
+    they measure); the device's busy time is the sum of its records.
+    Returns ``(fn's result, wall s, device-busy s, idle share, top device
+    ops)``; busy, idle and top are None when the profiler recorded no
+    device time, and on the CPU, where ``fn`` runs unprofiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, None, None, None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and _dev_ms(e) > 0),
+                    key=_dev_ms, reverse=True)
+    busy = sum(_dev_ms(e) for e in events) / 1e3
+    if busy <= 0:
+        return out, wall, None, None, None
+    top = [{"name": e.key[:72], "calls": e.count, "ms": _dev_ms(e)}
+           for e in events[:n_top]]
+    top.append({"name": "all kernels (no copies)", "calls": sum(
+        e.count for e in events if not e.key.startswith("Memcpy")),
+                "ms": sum(_dev_ms(e) for e in events
+                          if not e.key.startswith("Memcpy"))})
+    return out, wall, busy, 1 - busy / wall, top
+
+
+def mixed_planes(pt, st, R, GL, GR, device, folds):
+    """Both planes fully created, with the lease and health columns when
+    ``folds``: the six state arguments of ``paxos_tick_health``."""
+    s = st.create_groups(st.init_state(R, GL, 8, device=device),
+                         np.arange(GL), np.ones((GL, R), bool))
+    r = st.create_groups(st.init_state(R, GR, 1, device=device),
+                         np.arange(GR), np.ones((GR, R), bool))
+    if not folds:
+        return [s, r, None, None, None, None]
+    return [s, r, pt.init_lease(GL, LEASE_MARGIN, device),
+            pt.init_lease(GR, LEASE_MARGIN, device),
+            pt.init_health(GL, device), pt.init_health(GR, device)]
+
+
+def _same_planes(torch, a, b, what):
+    for i, (pa, pb) in enumerate(zip(a, b)):
+        if pa is None:
+            check(pb is None, f"{what}: plane {i} present once")
+            continue
+        for name, x, y in zip(pa._fields, pa, pb):
+            check(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()),
+                  f"{what}: plane {i} field {name} differs")
+
+
+def mixed_leg(torch, pg, dev, folds, GL=MIXED_LOG, GR=MIXED_REG, warm=3,
+              timed=30, profiled=10, cpu_ticks=3):
+    """``mixed-1M``: both planes through ``paxos_tick_health`` (compact
+    outboxes, exec budget R*G_total+4096) under register_bench.py's load,
+    one fresh request per composite group per tick entered at replica
+    ``g % 3``; leases and health on when ``folds``.  Each tick is closed
+    loop: its compact buffers, lease packs and health packs are on the
+    host before the next one starts; the host-side checks between ticks
+    are not in the tick's time.  The first ``cpu_ticks`` ticks are held
+    against the CPU's plain path (``torch.equal``) and every executed
+    stream is checked.  The timed window is followed by ``profiled`` more
+    loaded ticks under the profiler for the device's idle share, their
+    checks deferred until the profiler stops."""
+    from gigapaxos_tpu_torch.ops import tick as pt
+    from gigapaxos_tpu_torch.paxos import state as st
+
+    R, P, GT = 3, 1, GL + GR
+    E, LB = R * GT + 4096, 1024
+    planes = mixed_planes(pt, st, R, GL, GR, dev, folds)
+    cpu = mixed_planes(pt, st, R, GL, GR, "cpu", folds) if cpu_ticks else None
+    loaded = warm + timed + profiled
+    n_rids = loaded * GT
+    taken = np.zeros(n_rids, bool)
+    stream = StreamCheck(R, GT, n_rids)
+    entry, cols = np.arange(GT) % R, np.arange(GT)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    lat, decided, tick, idle = [], [0, 0], 0, 0
+    wedged_seen = lease_holders = 0
+
+    def step(planes, inbox):
+        res = pt.paxos_tick_health(*planes, inbox, -1, E, LB, LEASE_TICKS,
+                                   True, HEALTH_WEDGE, 6, HEALTH_TOPK)
+        return list(res[:6]), list(res[6:])
+
+    def one_tick(planes, tick):
+        loading = tick < loaded
+        t0 = time.perf_counter()
+        inbox = load_inbox(torch, pt, R, P, GT, 1 + tick * GT, dev,
+                           empty=not loading)
+        planes, outs = step(planes, inbox)
+        host = [None if o is None else o.cpu().numpy() for o in outs]
+        lat.append(time.perf_counter() - t0)
+        return planes, inbox, outs, host
+
+    def window(planes, tick, n, deferred=None):
+        for _ in range(n):
+            planes, _, _, host = one_tick(planes, tick)
+            if deferred is None:
+                consume(host, tick)
+            else:
+                deferred.append((host, tick))
+            tick += 1
+        return planes, tick
+
+    def consume(host, tick):
+        nonlocal wedged_seen, lease_holders
+        check(int(host[0][0]) <= E and int(host[1][0]) <= E,
+              "a plane's executions overflowed the exec budget")
+        co = pt.merge_compact_outbox(
+            pt.unpack_compact(host[0], R, GL, E, LB),
+            pt.unpack_compact(host[1], R, GR, E, LB), GL)
+        if warm <= tick < warm + timed:
+            decided[0] += co.decided_total
+        decided[1] += co.decided_total
+        if tick < loaded:
+            taken[tick * GT:(tick + 1) * GT] = \
+                (co.taken_bits[entry, cols] & 1).astype(bool)
+        stream.update(co.e_rid, co.e_rep, co.e_row, co.e_slot)
+        if folds:
+            lp = np.concatenate([host[2], host[3]], axis=1)
+            lease_holders = int((lp[pt.LP_HOLDER] >= 0).sum())
+            hv = pt.merge_health(pt.unpack_health(host[4], HEALTH_TOPK),
+                                 pt.unpack_health(host[5], HEALTH_TOPK),
+                                 GL, HEALTH_TOPK)
+            check(hv.alloc == GT, f"health: {hv.alloc} allocated of {GT}")
+            wedged_seen = max(wedged_seen, hv.wedged)
+
+    pg.reset_launches()
+    for tick in range(warm):
+        planes, inbox, outs, host = one_tick(planes, tick)
+        consume(host, tick)
+        if tick < cpu_ticks:
+            cin = pt.TickInbox(*(t.cpu() for t in inbox))
+            cpu, couts = step(cpu, cin)
+            _same_planes(torch, planes, cpu, f"mixed tick {tick} vs CPU")
+            for i, (o, c) in enumerate(zip(outs, couts)):
+                check((o is None) == (c is None)
+                      and (o is None or torch.equal(o.cpu(), c)),
+                      f"mixed tick {tick}: output {i} differs from the CPU")
+    cpu = None
+    tick = warm
+    sync()
+    planes, tick = window(planes, tick, timed)
+    deferred = []
+    (planes, tick), wall, busy, idle_share, top = idle_window(
+        torch, dev, lambda: window(planes, tick, profiled, deferred))
+    for host, t in deferred:
+        consume(host, t)
+    del deferred
+    while True:
+        planes, _, _, host = one_tick(planes, tick)
+        consume(host, tick)
+        co_idle = (int(host[0][0]) + int(host[1][0]) == 0
+                   and int(host[0][1]) + int(host[1][1]) == 0)
+        tick += 1
+        idle = idle + 1 if co_idle else 0
+        if idle >= 2:
+            break
+        check(tick < loaded + 64, "mixed drain did not finish")
+    stream.finish(taken)
+    launches = None
+    if dev.type == "cuda":  # the CPU's plain path launches nothing
+        launches = path_launches(pg, "mixed", tick, planes=2)
+    timed_lat = np.array(lat[warm:warm + timed]) * 1e3
+    t_timed = timed_lat.sum() / 1e3
+    out = {
+        "folds": "lease+health" if folds else "off",
+        "G_log": GL, "W_log": 8, "G_reg": GR, "W_reg": 1, "R": R, "P": P,
+        "exec_budget": E, "ticks_timed": timed, "ticks_total": tick,
+        "ms_per_tick": t_timed / timed * 1e3,
+        "dec_per_s": decided[0] / t_timed,
+        "tick_latency_p50_ms": float(np.percentile(timed_lat, 50)),
+        "tick_latency_p99_ms": float(np.percentile(timed_lat, 99)),
+        "taken": int(taken.sum()), "offered": n_rids,
+        "profiled_ticks": profiled,
+        "profiled_ms_per_tick": wall / profiled * 1e3,
+        "device_busy_ms_per_tick": (None if busy is None
+                                    else busy / profiled * 1e3),
+        "device_idle_share": idle_share,
+        # the device's busy time a tick against the unprofiled tick time
+        "device_idle_share_vs_timed": (
+            None if busy is None
+            else 1 - busy / profiled / (t_timed / timed)),
+        "top_device_ops": top, "launches": launches,
+    }
+    if folds:
+        out["lease_holders"] = lease_holders
+        out["health_wedged_max"] = wedged_seen
+        check(lease_holders == GT, f"{lease_holders} of {GT} groups hold "
+                                   "a lease")
+    return out
+
+
+def reads_cfg(G, leases, n_reg):
+    """read_bench.py's shape (2^17 log groups, W=8, compact outbox, leases
+    64/8) with the register plane fully allocated and the health fold on."""
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+
+    cfg = GigapaxosTpuConfig()
+    p = cfg.paxos
+    p.max_groups, p.window, p.compact_outbox = G, 8, True
+    p.register_groups = n_reg
+    p.read_leases = leases
+    p.lease_ticks, p.lease_margin_ticks = LEASE_TICKS, LEASE_MARGIN
+    p.group_health = True
+    p.health_topk, p.health_wedge_ticks = HEALTH_TOPK, HEALTH_WEDGE
+    return cfg
+
+
+def reads_manager(dev, G, leases, log_dir, n_reg, hot_reg, spill_ns):
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+    from gigapaxos_tpu_torch.wal.logger import PaxosLogger
+
+    cfg = reads_cfg(G, leases, n_reg)
+    wal = PaxosLogger(log_dir, sync_every_ticks=1,
+                      checkpoint_every_ticks=1 << 30, native=True)
+    m = PaxosManager(cfg, 3, [KVApp() for _ in range(3)], wal=wal,
+                     spill_ns=spill_ns, device=dev)
+    check(wal.backend == "native", "the WAL did not open the native journal")
+    names = [f"g{i}" for i in range(G)]
+    for i in range(0, G, 8192):
+        m.create_paxos_instances(names[i:i + 8192], [0, 1, 2])
+    regs = [f"r{i}" for i in range(hot_reg)]
+    for n in regs:  # register groups are created one at a time
+        check(m.create_paxos_instance(n, [0, 1, 2], register=True),
+              f"register create {n} failed")
+    return cfg, m, names, regs
+
+
+def _drive(m, pending, what, max_ticks=20000):
+    ticks = 0
+    while pending[0] > 0:
+        m.tick()
+        m.drain_pipeline()
+        ticks += 1
+        check(ticks < max_ticks, f"{what}: {pending[0]} ops never completed")
+    return ticks
+
+
+def reads_round(m, hot, ops, seed, acked, wseq):
+    """read_bench.py's 95/5 closed loop: ``ops`` operations over the hot
+    set (every 20th a write of a unique key), then ticks until every
+    callback fired.  Acked writes land in ``acked``."""
+    rng = np.random.default_rng(seed)
+    lat, pending = [], [0]
+    reads = writes = 0
+    local0 = m.stats["local_reads"]
+    t0 = time.perf_counter()
+    gidx = rng.integers(0, len(hot), size=ops)
+    for i in range(ops):
+        name = hot[int(gidx[i])]
+        pending[0] += 1
+        if i % 20 == 0:
+            writes += 1
+            k, v = f"w{wseq[0]}", str(wseq[0])
+            wseq[0] += 1
+
+            def wcb(r, resp, _n=name, _k=k, _v=v):
+                pending[0] -= 1
+                if resp == b"OK":
+                    acked[(_n, _k)] = _v
+            m.propose(name, f"PUT {k} {v}".encode(), wcb)
+        else:
+            reads += 1
+            ts = time.perf_counter()
+
+            def rcb(r, resp, _ts=ts):
+                pending[0] -= 1
+                lat.append(time.perf_counter() - _ts)
+                check(resp is not None, "a read failed")
+            m.read(name, b"GET k", rcb)
+    ticks = _drive(m, pending, "reads round")
+    dt = time.perf_counter() - t0
+    lat_ms = np.array(lat) * 1e3
+    local = int(m.stats["local_reads"] - local0)
+    return {"ops": reads + writes, "reads": reads, "writes": writes,
+            "ticks": ticks, "seconds": dt, "ops_per_s": (reads + writes) / dt,
+            "local_reads": local, "local_read_fraction": local / reads,
+            "read_p50_ms": float(np.percentile(lat_ms, 50)),
+            "read_p99_ms": float(np.percentile(lat_ms, 99))}
+
+
+def reads_warm(m, hot):
+    """One committed write per hot group, then a tick for the leases."""
+    pending = [0]
+    for n in hot:
+        pending[0] += 1
+        m.propose(n, b"PUT k 0",
+                  lambda r, resp: pending.__setitem__(0, pending[0] - 1))
+    _drive(m, pending, "warm")
+    m.tick()
+    m.drain_pipeline()
+
+
+def reads_leg(torch, pg, dev, work, G=1 << 17, hot_log=128, hot_reg=128,
+              ops=1 << 15, rounds=2, probe=4096):
+    """``reads-128k``: read_bench.py's 95/5 closed loop on a hot set of
+    ``hot_log`` log + ``hot_reg`` register groups of a G + G plane, leases
+    on, durable (native journal, fsync every tick, one checkpoint after the
+    first round); the last round runs under the profiler for the device's
+    idle share.  Then a uniform local-read probe over every log group, a
+    crash with no drain, recovery through both replay arms held against
+    each other and against the drained live manager, every acked write
+    read back at every replica, and one round with leases off on a fresh
+    manager."""
+    out = {"G_log": G, "G_reg": G, "hot_log": hot_log, "hot_reg": hot_reg,
+           "ops_per_round": ops, "rounds": rounds}
+    live_dir = os.path.join(work, "live")
+    pg.reset_launches()
+    t0 = time.perf_counter()
+    cfg, m, names, regs = reads_manager(dev, G, True, live_dir, G, hot_reg,
+                                        "smoke-reads")
+    out["build_s"] = time.perf_counter() - t0
+    hot = names[:hot_log] + regs
+    reads_warm(m, hot)
+    acked, wseq, legs = {}, [0], []
+    snap_tick = None
+    for k in range(rounds):
+        if k == rounds - 1:
+            res, wall, busy, idle, top = idle_window(
+                torch, dev,
+                lambda: reads_round(m, hot, ops, k, acked, wseq))
+            res["device_idle_share"] = idle
+            res["device_busy_s"] = busy
+            res["top_device_ops"] = top
+        else:
+            res = reads_round(m, hot, ops, k, acked, wseq)
+        legs.append(res)
+        if k == 0:  # one checkpoint mid-run
+            m.drain_pipeline()
+            m.wal.checkpoint()
+            snap_tick = m.tick_num
+    out["leases"] = legs
+    secs = sum(r["seconds"] for r in legs)
+    out["leases_ops_per_s"] = sum(r["ops"] for r in legs) / secs
+    # uniform probe: every created log group elected and holds a lease
+    rng = np.random.default_rng(7)
+    local0, pending = m.stats["local_reads"], [0]
+    for i in rng.integers(0, G, size=probe):
+        pending[0] += 1
+        m.read(names[int(i)], b"GET k",
+               lambda r, resp: pending.__setitem__(0, pending[0] - 1))
+    _drive(m, pending, "uniform probe")
+    out["uniform_probe_local_fraction"] = (
+        (m.stats["local_reads"] - local0) / probe)
+    out["host_ms_per_tick_by_phase"] = host_phases("smoke-reads")
+    out["ticks"] = m.tick_num
+    launches = None
+    if dev.type == "cuda":
+        launches = path_launches(pg, "reads", m.tick_num, planes=2)
+    check(len(acked) > 0, "no write was acked")
+    check(legs[-1]["local_read_fraction"] > 0.5,
+          f"reads were not served locally: {legs[-1]}")
+    m.wal.close()  # crash: no drain
+    copy_dir = os.path.join(work, "copy")
+    shutil.copytree(live_dir, copy_dir)
+
+    def apps():
+        from gigapaxos_tpu_torch.models.replicable import KVApp
+        return [KVApp() for _ in range(3)]
+
+    mb, t_b, rl = timed_recover(torch, pg, dev, cfg, 3, apps(), copy_dir,
+                                "batched", snap_tick, planes=2)
+    mr, t_r, _ = timed_recover(torch, pg, dev, cfg, 3, apps(), live_dir,
+                               "reference", snap_tick, planes=2)
+    check(mb._replay_sparse_windows == 0,
+          "a lease run replayed a sparse window")
+    m.drain_pipeline()
+    # a local read leaves no journal record; KVApp's GET of a group never
+    # written (the probe's) adds an empty table, which replay cannot see
+    for a in m.apps:
+        for n in [n for n, t in a.db.items() if not t]:
+            del a.db[n]
+    assert_same_manager(torch, mb, mr, "reads: batched vs reference")
+    assert_same_manager(torch, m, mb, "reads: drained live vs batched")
+    for (name, k), v in acked.items():
+        for r in range(3):
+            check(mb.apps[r].execute(name, f"GET {k}".encode(), 0)
+                  == v.encode(), f"acked {name} {k} lost at replica {r}")
+    out["acked_writes"] = len(acked)
+    out["replay_s"] = {"batched": t_b, "reference": t_r}
+    out["replayed_ticks"] = mb.tick_num - snap_tick
+    out["replay"] = replay_stats(mb)
+    out["replay_launches"] = rl
+    del m, mb, mr
+
+    # the same round with leases off (every read a consensus round)
+    pg.reset_launches()
+    _, m0, names0, regs0 = reads_manager(dev, G, False,
+                                         os.path.join(work, "off"), G,
+                                         hot_reg, "smoke-reads-off")
+    hot0 = names0[:hot_log] + regs0
+    reads_warm(m0, hot0)
+    out["leases_off"] = reads_round(m0, hot0, ops, 0, {}, [0])
+    check(out["leases_off"]["local_reads"] == 0, "a local read without "
+                                                 "leases")
+    if dev.type == "cuda":
+        got = path_launches(pg, "reads (leases off)", m0.tick_num, planes=2)
+        launches = {k: launches[k] + got[k] for k in launches}
+    m0.wal.close()
+    out["launches"] = launches
+    return out
+
+
+def planes_phase(torch, pg, dev):
+    """Both legs; the mixed arms in turns (on, off, off, on) so the two
+    are compared within one call, the CPU check in the first of each; the
+    reads leg in a temporary directory removed after."""
+    mixed = [mixed_leg(torch, pg, dev, folds, cpu_ticks=3 if i < 2 else 0)
+             for i, folds in enumerate((True, False, False, True))]
+    work = tempfile.mkdtemp(prefix="chip_smoke_reads_")
+    try:
+        reads = reads_leg(torch, pg, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return mixed, reads
+
+
 # ------------------------------------------------------ profile (opt-in)
 
 def profile_tick(torch, dev, R, W, P, G, exec_budget, lag_budget=1024,
@@ -1247,6 +1718,18 @@ def main(argv=None) -> int:
         clu["card"] = card
         launches["cluster"] = clu["launches"]
         print("cluster " + json.dumps(clu), flush=True)
+        mixed, reads = planes_phase(torch, pg, dev)
+        for leg in mixed:
+            leg["card"] = card
+            print("mixed-1M " + json.dumps(leg), flush=True)
+        reads["card"] = card
+        print("reads-128k " + json.dumps(reads), flush=True)
+        launches["mixed"] = {k: sum(leg["launches"][k] for leg in mixed)
+                             for k in launches["tick"]}
+        launches["reads"] = reads["launches"]
+        launches["replay"] = {k: launches["replay"][k]
+                              + reads["replay_launches"][k]
+                              for k in launches["replay"]}
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)

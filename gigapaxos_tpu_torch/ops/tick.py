@@ -20,14 +20,22 @@ contributes nothing and its state freezes; flipping it back alive models
 crash-recovery with intact local state.  The tick is deterministic given
 (state, inbox).
 
+Two optional ``[G]`` folds ride inside the tick: the read-lease columns
+(:class:`LeaseState`: grant/renew/expiry and the write fence) and the
+group-health columns (:class:`HealthState`: stall age, coordinator churn
+and offered-load heat, reduced to an O(K) pack).  Register groups run the
+same tick on a second state plane at W=1 (the mixed planes below); one
+dispatch body, :func:`paxos_tick_health`, covers every combination of
+the two planes and the two folds.
+
 dtype discipline: every reduction that PyTorch would widen to int64 (sum,
 cumsum, cumprod over int32 or bool) passes ``dtype=torch.int32``, so every
 intermediate keeps the int32 wraparound arithmetic the slot and ballot
 comparisons rely on.  The tick never writes its input state: it returns
 fresh tensors.
 
-This slice ports the Mode A core: no fast re-election, lease, health plane
-or sharded group axis.  Those options raise ``NotImplementedError``.
+Fast re-election (Mode B) and a sharded group axis (the mesh) are not
+ported; those options raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -113,10 +121,180 @@ def _excl_cumsum(x, dim):
     return torch.cumsum(xi, dim=dim, dtype=I32) - xi
 
 
+def _in_range_rows(rows, n: int, dev) -> torch.Tensor:
+    """``rows`` as an int64 index on ``dev`` with out-of-range entries
+    (batch padding) filtered out: the reference's ``mode="drop"`` scatter,
+    which a torch index would refuse (CPU) or trap on (CUDA)."""
+    r = np.asarray(rows.cpu() if isinstance(rows, torch.Tensor) else rows,
+                   np.int64).reshape(-1)
+    return torch.as_tensor(r[(r >= 0) & (r < n)], device=dev)
+
+
+class LeaseState(NamedTuple):
+    """Leader-lease columns: dense ``[G]`` lease state folded inside the
+    tick, so grant/renew/expiry piggyback on the accept traffic the tick
+    already computes.  Time is the lease clock itself (one tick = one
+    unit), so lease decisions are a pure function of (state, inbox) and
+    journal replay reproduces them bit for bit.
+
+    clock:  int32 []   — lease clock; +1 per tick.
+    holder: int32 [G]  — replica id holding the read lease (-1 = none).
+    epoch:  int32 [G]  — grant counter; bumps whenever the holder changes.
+    until:  int32 [G]  — expiry tick; reads are valid while clock < until.
+    margin: int32 [G]  — skew allowance: a DIFFERENT coordinator may not
+            admit new writes until ``clock >= until + margin`` (the
+            write-side fence).
+    """
+
+    clock: torch.Tensor
+    holder: torch.Tensor
+    epoch: torch.Tensor
+    until: torch.Tensor
+    margin: torch.Tensor
+
+
+#: lease_pack row indices (the [5, G] per-plane host summary of a lease
+#: tick: one device-to-host copy per plane per tick)
+LP_HOLDER, LP_EPOCH, LP_UNTIL, LP_ASN, LP_WAIT = range(5)
+
+
+def init_lease(n_groups: int, margin_ticks: int = 0,
+               device=None) -> LeaseState:
+    dev = resolve_device(device)
+    return LeaseState(
+        clock=torch.zeros((), dtype=I32, device=dev),
+        holder=torch.full((n_groups,), -1, dtype=I32, device=dev),
+        epoch=torch.zeros((n_groups,), dtype=I32, device=dev),
+        until=torch.zeros((n_groups,), dtype=I32, device=dev),
+        margin=torch.full((n_groups,), margin_ticks, dtype=I32, device=dev),
+    )
+
+
+def lease_clear_rows(lease: LeaseState, rows) -> LeaseState:
+    """Drop leases on ``rows`` in place (row lifecycle: create, remove,
+    pause).  Out-of-range rows (padding) are ignored."""
+    r = _in_range_rows(rows, lease.holder.shape[0], lease.holder.device)
+    lease.holder[r] = -1
+    lease.epoch[r] = 0
+    lease.until[r] = 0
+    return lease
+
+
+class HealthState(NamedTuple):
+    """Group-health columns: dense ``[G]`` per-group health facts folded
+    inside the tick, reduced on the device to an O(K) pack.  Observation
+    only: nothing here feeds back into consensus, so a health-on run
+    journals the same bytes as a health-off run.
+
+    clock:       int32 []  — health clock; +1 per tick.
+    last_active: int32 [G] — last tick the group made commit/exec progress
+                 or had no backlog; ``clock - last_active`` is the stall age.
+    last_coord:  int32 [G] — last effective coordinator observed (-1 until
+                 a first election).
+    churn:       int32 [G] — decaying coordinator-handoff score, Q4 fixed
+                 point (one handoff adds 16; each tick decays by
+                 ``1/2**decay_shift`` of the current value).
+    heat:        int32 [G] — decaying offered-intake EWMA, Q4 fixed point.
+    """
+
+    clock: torch.Tensor
+    last_active: torch.Tensor
+    last_coord: torch.Tensor
+    churn: torch.Tensor
+    heat: torch.Tensor
+
+
+def init_health(n_groups: int, device=None) -> HealthState:
+    dev = resolve_device(device)
+    return HealthState(
+        clock=torch.zeros((), dtype=I32, device=dev),
+        last_active=torch.zeros((n_groups,), dtype=I32, device=dev),
+        last_coord=torch.full((n_groups,), -1, dtype=I32, device=dev),
+        churn=torch.zeros((n_groups,), dtype=I32, device=dev),
+        heat=torch.zeros((n_groups,), dtype=I32, device=dev),
+    )
+
+
+def health_clear_rows(health: HealthState, rows) -> HealthState:
+    """Reset health columns of freed rows in place: a recycled row must not
+    inherit the previous occupant's stall age or churn score.  Out-of-range
+    rows (padding) are ignored."""
+    r = _in_range_rows(rows, health.heat.shape[0], health.heat.device)
+    health.last_active[r] = health.clock
+    health.last_coord[r] = -1
+    health.churn[r] = 0
+    health.heat[r] = 0
+    return health
+
+
+#: health_pack gauge indices (see :class:`HealthLayout`)
+(HG_ALLOC, HG_BACKLOG, HG_WEDGED, HG_MAX_STALL, HG_MAX_CHURN,
+ HG_LEASE_WAIT) = range(6)
+HG_N = 6
+#: log2 histogram buckets in the health pack — bucket i holds values with
+#: ``int(v).bit_length() == i``; bucket 31 is the overflow tail
+HB = 32
+
+
+def _log2_hist(v, mask):
+    """[G] int32 values -> [HB] int32 bucket counts over ``mask`` rows,
+    bucketed by bit_length; a masked row with a negative value counts as
+    0.  The bit length of a non-negative int32 is the exponent ``frexp``
+    returns for it in float64 (exact for every int32), and one [HB, G]
+    compare-and-count replaces the reference's 31 threshold count-sums.
+    (``torch.bincount`` would size its output from a device-to-host read
+    of the maximum, a sync in the middle of the tick; a scatter-add into
+    HB bins serializes on its atomics: 0.39 ms at G=917,504 on an H100.)"""
+    bits = torch.frexp(torch.clamp(v, min=0).to(torch.float64)).exponent
+    bucket = torch.where(mask, bits, HB)  # HB: unmasked, never counted
+    ar = torch.arange(HB, dtype=bits.dtype, device=v.device)
+    return _i32sum(bucket[None, :] == ar[:, None], 1)
+
+
+def _topk_rows(v, allocated, k: int):
+    """The reference's f32 ``top_k`` ranking: values clamped at 2^24 (exact
+    in f32), unallocated rows at -1, descending, ties to the LOWEST row
+    (``torch.topk`` orders ties arbitrarily).  Each (value, row) pair is
+    folded into one int64 key, unique per row, so one ``topk`` over the
+    keys is exact.  Returns int32 ``(values[k], rows[k])``."""
+    val = torch.where(allocated, torch.clamp(v, max=1 << 24), -1)
+    rows = torch.arange(v.shape[0], dtype=torch.int64, device=v.device)
+    key = ((val.to(torch.int64) + 1) << 32) | (0xFFFFFFFF - rows)
+    top = torch.topk(key, k).values
+    return ((top >> 32) - 1).to(I32), (0xFFFFFFFF - (top & 0xFFFFFFFF)).to(I32)
+
+
+def _health_pack_impl(stall, churn, heat, backlog, allocated, wait_n,
+                      wedge_ticks: int, topk: int):
+    """Reduce the [G] health columns into the flat int32 host summary
+    described by :class:`HealthLayout`: scalar gauges, two log2
+    histograms, and the top-K (value, row) columns per anomaly
+    criterion."""
+    wedged = allocated & (stall >= wedge_ticks)
+    gauges = torch.stack([
+        _i32sum(allocated, 0),
+        _i32sum(backlog, 0),
+        _i32sum(wedged, 0),
+        torch.where(allocated, stall, 0).amax(),
+        torch.where(allocated, churn, 0).amax(),
+        wait_n,
+    ]).to(I32)
+    parts = [gauges, _log2_hist(stall, allocated),
+             _log2_hist(churn >> 4, allocated)]
+    for v in (stall, churn, heat):
+        parts += list(_topk_rows(v, allocated, topk))
+    return torch.cat(parts)
+
+
 def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
                     exec_budget: int = 0, group_axis=None,
-                    fast_elect: bool = False, lease=None, health=None):
-    """One tick: returns ``(new_state, outbox)``.
+                    fast_elect: bool = False, lease: LeaseState = None,
+                    lease_horizon: int = 0, health: HealthState = None,
+                    wedge_ticks: int = 32, health_decay_shift: int = 6,
+                    health_topk: int = 8):
+    """One tick: returns ``(new_state, outbox)``, extended by ``(new_lease,
+    lease_pack)`` when ``lease`` is given and by ``(new_health,
+    health_pack)`` when ``health`` is (lease first).
 
     exec_budget: 0 = unlimited.  > 0 caps the TOTAL executions extracted
     this tick across all (replica, group) pairs, ranked in (j, r, g) order
@@ -125,16 +303,15 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     decision ring (lossless backpressure).
 
     own_row: -1 for Mode A (all rows authoritative).  ``>= 0`` confines
-    every state transition to that row (Mode B peer rows are mirrors)."""
+    every state transition to that row (Mode B peer rows are mirrors).
+
+    lease_horizon: ticks a grant or renewal keeps the lease valid.
+    wedge_ticks / health_decay_shift / health_topk: the health fold's
+    wedge threshold, EWMA decay and top-K width."""
     if fast_elect:
         raise NotImplementedError(
             "fast_elect (consecutive-ballot re-election) comes with the "
             "Mode B slice of the port")
-    if lease is not None:
-        raise NotImplementedError("the lease plane comes with its own slice")
-    if health is not None:
-        raise NotImplementedError(
-            "the group-health plane comes with its own slice")
     if group_axis is not None:
         raise NotImplementedError(
             "a sharded group axis comes with the mesh slice of the port")
@@ -273,6 +450,16 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     stop_flat = inbox.stop.reshape(RP, G)
     src_alive = alive[:, None, None].expand(R, P, G).reshape(RP, G)
     group_open = has_coord & (is_win & is_active).any(dim=0)
+    if lease is not None:
+        # lease write fence: a coordinator that is not the lease holder
+        # admits no new write until the prior lease expired past its skew
+        # margin; already-assigned proposals keep pushing (the holder's
+        # frontier covers them)
+        lclock = lease.clock + 1
+        lease_expired = lclock >= lease.until + lease.margin
+        fence_ok = (lease.holder < 0) | (lease.holder == w_c) | lease_expired
+        lease_wait = group_open & ~fence_ok
+        group_open = group_open & fence_ok
     valid_in = (req_flat != NO_REQUEST) & src_alive & group_open[None, :]
     # FIFO admission without a sort: rank each valid entry by prefix count
     p_rank = _excl_cumsum(valid_in, 0)  # [RP, G] rank among valid
@@ -484,7 +671,59 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         donor_exec=torch.where(d_ok, d_exec, 0),
         donor_status=torch.where(d_ok, d_status, 0),
     )
-    return new_state, outbox
+    res = (new_state, outbox)
+    if lease is not None:
+        # grant/renew: the effective winner renews by staying the winner;
+        # a grant needs the previous lease gone (never held, or expired
+        # past its margin)
+        renew = has_coord & (lease.holder == w_c)
+        grant = has_coord & ~renew & ((lease.holder < 0) | lease_expired)
+        l_holder = torch.where(grant, w_c, lease.holder)
+        l_epoch = torch.where(grant, lease.epoch + 1, lease.epoch)
+        l_until = torch.where(renew | grant, lclock + lease_horizon,
+                              lease.until)
+        # accepted frontier: max assigned slot over MEMBER rows (dead
+        # included); a read is local only when the holder executed it all
+        asn = torch.where(member, new_state.next_slot, 0).amax(dim=0)
+        lease_pack = torch.stack([l_holder, l_epoch, l_until, asn,
+                                  lease_wait.to(I32)])
+        res += (LeaseState(lclock, l_holder, l_epoch, l_until, lease.margin),
+                lease_pack)
+    if health is not None:
+        # health fold: read-only w.r.t. consensus.  Backlog = offered
+        # intake, an assignment frontier ahead of the exec frontier, or an
+        # unresolved election (the quorum-lost case)
+        hclock = health.clock + 1
+        allocated = member.any(dim=0)
+        offered_in = req_flat != NO_REQUEST
+        offered = offered_in.any(dim=0)
+        asn_h = torch.where(member, new_state.next_slot, 0).amax(dim=0)
+        done_h = torch.where(member, new_state.exec_slot, 0).amax(dim=0)
+        electing = (member & alive[:, None]
+                    & new_state.coord_preparing).any(dim=0)
+        backlog = (offered | (asn_h > done_h) | electing) & allocated
+        progress = (decided_now > 0) | (n_exec.amax(dim=0) > 0)
+        h_last_active = torch.where(progress | ~backlog, hclock,
+                                    health.last_active)
+        # churn counts real handoffs only: a first election is not churn
+        w_eff = torch.where(has_coord, w_c, -1)
+        handoff = has_coord & (health.last_coord >= 0) & (
+            w_eff != health.last_coord)
+        h_last_coord = torch.where(has_coord, w_eff, health.last_coord)
+        sh = health_decay_shift
+        h_churn = (health.churn - (health.churn >> sh)
+                   + (handoff.to(I32) << 4))
+        h_heat = (health.heat - (health.heat >> sh)
+                  + (_i32sum(offered_in, 0) << 4))
+        stall = torch.where(allocated & backlog, hclock - h_last_active, 0)
+        wait_n = (_i32sum(lease_wait, 0) if lease is not None
+                  else torch.zeros((), dtype=I32, device=dev))
+        health_pack = _health_pack_impl(
+            stall, h_churn, h_heat, backlog, allocated, wait_n,
+            wedge_ticks, health_topk)
+        res += (HealthState(hclock, h_last_active, h_last_coord, h_churn,
+                            h_heat), health_pack)
+    return res
 
 
 class HostOutbox(NamedTuple):
@@ -553,8 +792,19 @@ def _host(flat) -> np.ndarray:
 def paxos_tick_packed(state, inbox: TickInbox, own_row: int = -1,
                       exec_budget: int = 0):
     """Tick + full outbox packed into one int32 buffer."""
-    state, out = paxos_tick_impl(state, inbox, own_row, exec_budget)
-    return state, pack_outbox_impl(out)
+    res = paxos_tick_health(state, None, None, None, None, None, inbox,
+                            own_row, exec_budget, 0, 0, False)
+    return res[0], res[6]
+
+
+def paxos_tick_packed_lease(state, lease: LeaseState, inbox: TickInbox,
+                            own_row: int = -1, exec_budget: int = 0,
+                            lease_horizon: int = 0):
+    """Lease twin of :func:`paxos_tick_packed`: also returns the new
+    :class:`LeaseState` and the [5, G] lease pack."""
+    res = paxos_tick_health(state, None, lease, None, None, None, inbox,
+                            own_row, exec_budget, 0, lease_horizon, False)
+    return res[0], res[2], res[6], res[8]
 
 
 # --------------------------------------------------------------------------
@@ -662,8 +912,20 @@ def _compact_outbox_impl(out: TickOutbox, exec_budget: int,
 def paxos_tick_compact(state, inbox: TickInbox, own_row: int,
                        exec_budget: int, lag_budget: int):
     """Tick + budgeted on-device compaction: one O(budget) buffer."""
-    state, out = paxos_tick_impl(state, inbox, own_row, exec_budget)
-    return state, _compact_outbox_impl(out, exec_budget, lag_budget)
+    res = paxos_tick_health(state, None, None, None, None, None, inbox,
+                            own_row, exec_budget, lag_budget, 0, True)
+    return res[0], res[6]
+
+
+def paxos_tick_compact_lease(state, lease: LeaseState, inbox: TickInbox,
+                             own_row: int, exec_budget: int, lag_budget: int,
+                             lease_horizon: int):
+    """Lease twin of :func:`paxos_tick_compact`: the O(budget) compact
+    buffer plus the O(G) lease pack."""
+    res = paxos_tick_health(state, None, lease, None, None, None, inbox,
+                            own_row, exec_budget, lag_budget, lease_horizon,
+                            True)
+    return res[0], res[2], res[6], res[8]
 
 
 class CompactLayout:
@@ -683,6 +945,7 @@ class CompactLayout:
         self.o_taken = self.HEADER
         self.o_exec = self.o_taken + R * G      # 4 E-sized exec columns
         self.o_lag = self.o_exec + 4 * self.E   # LAG_COLS Lb-sized columns
+        self.total_plain = self.o_lag + self.LAG_COLS * self.Lb
 
 
 def unpack_compact(flat, R: int, G: int, exec_budget: int,
@@ -726,6 +989,273 @@ def unpack_compact(flat, R: int, G: int, exec_budget: int,
 
 
 # --------------------------------------------------------------------------
+# Mixed log/register planes (register mode, RMWPaxos).
+#
+# Register groups run the SAME tick on a second dense state plane built
+# with W=1: the ring degenerates to one in-place consensus cell (space caps
+# at one outstanding proposal, prepare carryover is carry-forward, and
+# exec_slot counts versions).  The composite row space the manager exposes
+# is [0, G_log) log rows followed by [G_log, G_log + G_reg) register rows:
+# the row index is the mode bit, so a tick splits the inbox at the plane
+# boundary, runs paxos_tick_impl per plane, and the host merges the two
+# outboxes back into the composite row space.
+# --------------------------------------------------------------------------
+
+
+def _split_inbox(inbox: TickInbox, g_log: int):
+    """The composite inbox cut at the plane boundary, each half contiguous
+    (the kernels take contiguous rows)."""
+    return (
+        TickInbox(inbox.req[:, :, :g_log].contiguous(),
+                  inbox.stop[:, :, :g_log].contiguous(), inbox.alive),
+        TickInbox(inbox.req[:, :, g_log:].contiguous(),
+                  inbox.stop[:, :, g_log:].contiguous(), inbox.alive),
+    )
+
+
+def paxos_tick_health(state, rstate, lease, rlease, health, rhealth,
+                      inbox: TickInbox, own_row: int, exec_budget: int,
+                      lag_budget: int, lease_horizon: int, compact: bool,
+                      wedge_ticks: int = 32, decay_shift: int = 6,
+                      topk: int = 8, scat_budget: int = None):
+    """The one dispatch body of every tick entry point: ticks the log
+    plane (and the register plane when ``rstate`` is given), folds the
+    lease columns when ``lease`` is given and the health columns when
+    ``health`` is, per plane, and packs each plane's outbox compact or
+    full.  Absent planes and folds are ``None``.
+
+    Returns a fixed 12-tuple ``(state, rstate, lease, rlease, health,
+    rhealth, out_l, out_r, lp_l, lp_r, hp_l, hp_r)`` with ``None`` in every
+    absent position.  The per-plane top-K is ``min(topk, G_plane)``; the
+    host unpacks with the same clamp.  ``scat_budget`` sizes the compact
+    buffer when it differs from the exec budget (batched replay)."""
+    scat = exec_budget if scat_budget is None else scat_budget
+
+    def plane(st, ib, le, he, k):
+        res = paxos_tick_impl(
+            st, ib, own_row, exec_budget, lease=le,
+            lease_horizon=lease_horizon, health=he, wedge_ticks=wedge_ticks,
+            health_decay_shift=decay_shift, health_topk=k)
+        st2, out, rest = res[0], res[1], list(res[2:])
+        le2 = lp = he2 = hp = None
+        if le is not None:
+            le2, lp = rest[0], rest[1]
+            rest = rest[2:]
+        if he is not None:
+            he2, hp = rest
+        pk = (_compact_outbox_impl(out, scat, lag_budget)
+              if compact else pack_outbox_impl(out))
+        return st2, le2, he2, pk, lp, hp
+
+    g_log = state.exec_slot.shape[1]
+    if rstate is not None:
+        ib_l, ib_r = _split_inbox(inbox, g_log)
+    else:
+        ib_l, ib_r = inbox, None
+    state, lease, health, pk_l, lp_l, hp_l = plane(
+        state, ib_l, lease, health, min(topk, g_log))
+    pk_r = lp_r = hp_r = None
+    if rstate is not None:
+        rstate, rlease, rhealth, pk_r, lp_r, hp_r = plane(
+            rstate, ib_r, rlease, rhealth,
+            min(topk, rstate.exec_slot.shape[1]))
+    return (state, rstate, lease, rlease, health, rhealth,
+            pk_l, pk_r, lp_l, lp_r, hp_l, hp_r)
+
+
+def paxos_tick_mixed_packed(state, rstate, inbox: TickInbox,
+                            own_row: int = -1, exec_budget: int = 0):
+    """Mixed tick, full (packed) outbox per plane."""
+    res = paxos_tick_health(state, rstate, None, None, None, None, inbox,
+                            own_row, exec_budget, 0, 0, False)
+    return res[0], res[1], res[6], res[7]
+
+
+def paxos_tick_mixed_packed_lease(state, rstate, lease, rlease,
+                                  inbox: TickInbox, own_row: int = -1,
+                                  exec_budget: int = 0,
+                                  lease_horizon: int = 0):
+    """Lease twin of the mixed packed tick: each plane folds its own
+    :class:`LeaseState`."""
+    res = paxos_tick_health(state, rstate, lease, rlease, None, None, inbox,
+                            own_row, exec_budget, 0, lease_horizon, False)
+    return res[:4] + res[6:10]
+
+
+def paxos_tick_mixed_compact(state, rstate, inbox: TickInbox, own_row: int,
+                             exec_budget: int, lag_budget: int):
+    """Mixed tick, budgeted compact outbox per plane.  The register plane's
+    compaction flags laggards at lag >= 1: the lag threshold is the
+    plane's own W."""
+    res = paxos_tick_health(state, rstate, None, None, None, None, inbox,
+                            own_row, exec_budget, lag_budget, 0, True)
+    return res[0], res[1], res[6], res[7]
+
+
+def paxos_tick_mixed_compact_lease(state, rstate, lease, rlease,
+                                   inbox: TickInbox, own_row: int,
+                                   exec_budget: int, lag_budget: int,
+                                   lease_horizon: int):
+    res = paxos_tick_health(state, rstate, lease, rlease, None, None, inbox,
+                            own_row, exec_budget, lag_budget, lease_horizon,
+                            True)
+    return res[:4] + res[6:10]
+
+
+def merge_outbox(out_l: HostOutbox, out_r: HostOutbox) -> HostOutbox:
+    """Concatenate the two planes' full outboxes into the composite row
+    space (every field is indexed by row, so concatenation along the group
+    axis is the whole merge).  The register plane's W=1 exec ring is
+    zero-padded to the log plane's W: consumers read only j < exec_count
+    entries, and a register row executes at most one slot per tick."""
+    R, W, _ = out_l.exec_req.shape
+    Rr, Wr, Gr = out_r.exec_req.shape
+
+    def wide(a):
+        if Wr == W:
+            return a
+        pad = np.zeros((Rr, W - Wr, Gr), a.dtype)
+        return np.concatenate([a, pad], axis=1)
+
+    cat = np.concatenate
+    return HostOutbox(
+        exec_req=cat([out_l.exec_req, wide(out_r.exec_req)], axis=2),
+        exec_stop=cat([out_l.exec_stop, wide(out_r.exec_stop)], axis=2),
+        exec_base=cat([out_l.exec_base, out_r.exec_base], axis=1),
+        exec_count=cat([out_l.exec_count, out_r.exec_count], axis=1),
+        intake_taken=cat([out_l.intake_taken, out_r.intake_taken], axis=2),
+        coord_id=cat([out_l.coord_id, out_r.coord_id]),
+        decided_now=cat([out_l.decided_now, out_r.decided_now]),
+        lag=cat([out_l.lag, out_r.lag], axis=1),
+        donor=cat([out_l.donor, out_r.donor], axis=1),
+        donor_exec=cat([out_l.donor_exec, out_r.donor_exec], axis=1),
+        donor_status=cat([out_l.donor_status, out_r.donor_status], axis=1),
+    )
+
+
+def merge_compact_outbox(co_l: CompactHostOutbox, co_r: CompactHostOutbox,
+                         g_log: int) -> CompactHostOutbox:
+    """Merge two planes' compact outboxes into composite rows: counts sum,
+    taken_bits stack along G, and the e_*/l_* columns (already trimmed to
+    their valid length) concatenate with the register plane's rows offset
+    by g_log."""
+    cat = np.concatenate
+    return CompactHostOutbox(
+        n_exec=co_l.n_exec + co_r.n_exec,
+        decided_total=co_l.decided_total + co_r.decided_total,
+        lag_n=co_l.lag_n + co_r.lag_n,
+        taken_bits=np.hstack([co_l.taken_bits, co_r.taken_bits]),
+        e_rid=cat([co_l.e_rid, co_r.e_rid]),
+        e_rep=cat([co_l.e_rep, co_r.e_rep]),
+        e_row=cat([co_l.e_row, co_r.e_row + g_log]),
+        e_slot=cat([co_l.e_slot, co_r.e_slot]),
+        e_stop=cat([co_l.e_stop, co_r.e_stop]),
+        l_rep=cat([co_l.l_rep, co_r.l_rep]),
+        l_row=cat([co_l.l_row, co_r.l_row + g_log]),
+        l_donor=cat([co_l.l_donor, co_r.l_donor]),
+        l_dexec=cat([co_l.l_dexec, co_r.l_dexec]),
+        l_dstat=cat([co_l.l_dstat, co_r.l_dstat]),
+        l_lexec=cat([co_l.l_lexec, co_r.l_lexec]),
+    )
+
+
+# --------------------------------------------------------------------------
+# Group-health plane, host side: the flat health_pack layout, its unpack
+# and the composite-plane merge.
+# --------------------------------------------------------------------------
+
+
+class HealthLayout:
+    """Offsets of the flat health_pack buffer: ``gauges[HG_N] |
+    hist_stall[HB] | hist_churn[HB] | (val[K], row[K]) x (stuck, churny,
+    hot)``."""
+
+    def __init__(self, topk: int):
+        self.K = topk
+        self.o_hist_stall = HG_N
+        self.o_hist_churn = self.o_hist_stall + HB
+        self.o_top = self.o_hist_churn + HB
+
+
+class HealthView(NamedTuple):
+    """Host (numpy) view of one tick's health pack."""
+
+    alloc: int          # allocated groups
+    backlog: int        # groups with device-visible backlog this tick
+    wedged: int         # backlogged groups stalled >= wedge_ticks
+    max_stall: int      # worst stall age (ticks)
+    max_churn: int      # worst churn score (Q4 fixed point)
+    lease_wait: int     # coordinators write-fenced behind a prior lease
+    hist_stall: "np.ndarray"  # [HB] log2 buckets of stall age
+    hist_churn: "np.ndarray"  # [HB] log2 buckets of handoff score (whole)
+    stuck_val: "np.ndarray"   # [K] desc; -1 entries = fewer than K rows
+    stuck_row: "np.ndarray"
+    churn_val: "np.ndarray"
+    churn_row: "np.ndarray"
+    heat_val: "np.ndarray"
+    heat_row: "np.ndarray"
+
+
+def unpack_health(flat, topk: int) -> HealthView:
+    """Host-side inverse of :func:`_health_pack_impl` (views into the one
+    transferred buffer)."""
+    flat = _host(flat)
+    L = HealthLayout(topk)
+    o = L.o_top
+    cols = []
+    for _ in range(6):
+        cols.append(flat[o:o + topk])
+        o += topk
+    return HealthView(
+        alloc=int(flat[HG_ALLOC]),
+        backlog=int(flat[HG_BACKLOG]),
+        wedged=int(flat[HG_WEDGED]),
+        max_stall=int(flat[HG_MAX_STALL]),
+        max_churn=int(flat[HG_MAX_CHURN]),
+        lease_wait=int(flat[HG_LEASE_WAIT]),
+        hist_stall=flat[L.o_hist_stall:L.o_hist_stall + HB],
+        hist_churn=flat[L.o_hist_churn:L.o_hist_churn + HB],
+        stuck_val=cols[0], stuck_row=cols[1],
+        churn_val=cols[2], churn_row=cols[3],
+        heat_val=cols[4], heat_row=cols[5],
+    )
+
+
+def _merge_top(val_l, row_l, val_r, row_r, g_log: int, topk: int):
+    """Merge two planes' top-K columns into composite-row top-K: register
+    rows re-offset by g_log, then one stable sort over the 2K entries."""
+    vals = np.concatenate([val_l, val_r])
+    rows = np.concatenate([row_l, row_r + g_log])
+    order = np.argsort(-vals, kind="stable")[:topk]
+    return vals[order], rows[order]
+
+
+def merge_health(hv_l: HealthView, hv_r: HealthView, g_log: int,
+                 topk: int) -> HealthView:
+    """Compose the two planes' health views into the composite row space
+    (counts sum, maxima max, histograms add, top-K re-ranks)."""
+    sv, sr = _merge_top(hv_l.stuck_val, hv_l.stuck_row,
+                        hv_r.stuck_val, hv_r.stuck_row, g_log, topk)
+    cv, cr = _merge_top(hv_l.churn_val, hv_l.churn_row,
+                        hv_r.churn_val, hv_r.churn_row, g_log, topk)
+    hv, hr = _merge_top(hv_l.heat_val, hv_l.heat_row,
+                        hv_r.heat_val, hv_r.heat_row, g_log, topk)
+    return HealthView(
+        alloc=hv_l.alloc + hv_r.alloc,
+        backlog=hv_l.backlog + hv_r.backlog,
+        wedged=hv_l.wedged + hv_r.wedged,
+        max_stall=max(hv_l.max_stall, hv_r.max_stall),
+        max_churn=max(hv_l.max_churn, hv_r.max_churn),
+        lease_wait=hv_l.lease_wait + hv_r.lease_wait,
+        hist_stall=hv_l.hist_stall + hv_r.hist_stall,
+        hist_churn=hv_l.hist_churn + hv_r.hist_churn,
+        stuck_val=sv, stuck_row=sr,
+        churn_val=cv, churn_row=cr,
+        heat_val=hv, heat_row=hr,
+    )
+
+
+# --------------------------------------------------------------------------
 # Batched WAL replay: K journaled ticks back to back on the device.
 #
 # Journal replay re-runs the SAME fused tick body as the live run.  A window
@@ -760,13 +1290,17 @@ def _coo_inbox(x, R: int, P: int, g_total: int) -> TickInbox:
                      stop[..., :g_total].contiguous(), x["alive"])
 
 
-def replay_scan_ticks(state, xs, P: int, exec_budget: int,
-                      scat_budget: int, lag_budget: int):
-    """K journaled ticks on ``state``'s device.  ``xs``: the window's COO
-    columns as ``[K, M]`` arrays (``e``, ``p``, ``g``, ``rid``, ``stop``)
-    and ``alive [K, R]``, numpy or tensors.  Returns ``(state, packs)`` with
-    ``packs`` the ``[K, total]`` compact buffers, still on the device."""
-    R, G = state.exec_slot.shape
+def _replay_loop(state, rstate, lease, rlease, xs, P: int,
+                 exec_budget: int, scat_budget: int, lag_budget: int,
+                 lease_horizon: int):
+    """The body every replay scan shares: K journaled ticks through
+    :func:`paxos_tick_health`, each plane's compact buffer side by side in
+    one row per tick.  Returns ``(state, rstate, lease, rlease, packs,
+    lp_last, waits)``: ``lp_last`` the final tick's lease pack(s) (the
+    host mirror only ever holds the latest), ``waits`` each tick's fenced
+    group count."""
+    R, g_log = state.exec_slot.shape
+    g_total = g_log + (0 if rstate is None else rstate.exec_slot.shape[1])
     dev = state.exec_slot.device
 
     def col(name, dtype):
@@ -776,30 +1310,64 @@ def replay_scan_ticks(state, xs, P: int, exec_budget: int,
 
     e, p, g = (col(k, torch.int64) for k in ("e", "p", "g"))
     rid, stop, alive = col("rid", I32), col("stop", BOOL), col("alive", BOOL)
-    packs = []
+    packs, waits, lp_last = [], [], None
     for k in range(e.shape[0]):
         x = {"e": e[k], "p": p[k], "g": g[k], "rid": rid[k],
              "stop": stop[k], "alive": alive[k]}
-        state, out = paxos_tick_impl(state, _coo_inbox(x, R, P, G), -1,
-                                     exec_budget)
-        packs.append(_compact_outbox_impl(out, scat_budget, lag_budget))
-    return state, torch.stack(packs)
+        (state, rstate, lease, rlease, _, _, pk_l, pk_r, lp_l, lp_r, _,
+         _) = paxos_tick_health(
+            state, rstate, lease, rlease, None, None,
+            _coo_inbox(x, R, P, g_total), -1, exec_budget, lag_budget,
+            lease_horizon, True, scat_budget=scat_budget)
+        packs.append(pk_l if pk_r is None else torch.cat([pk_l, pk_r]))
+        if lp_l is not None:
+            lp_last = lp_l if lp_r is None else (lp_l, lp_r)
+            w = _i32sum(lp_l[LP_WAIT], 0)
+            waits.append(w if lp_r is None else w + _i32sum(lp_r[LP_WAIT], 0))
+    return (state, rstate, lease, rlease, torch.stack(packs), lp_last,
+            torch.stack(waits) if waits else None)
 
 
-def replay_scan_ticks_lease(*args, **kwargs):
-    raise NotImplementedError(
-        "lease-plane replay comes with the lease slice of the port")
+def replay_scan_ticks(state, xs, P: int, exec_budget: int,
+                      scat_budget: int, lag_budget: int):
+    """K journaled ticks on ``state``'s device.  ``xs``: the window's COO
+    columns as ``[K, M]`` arrays (``e``, ``p``, ``g``, ``rid``, ``stop``)
+    and ``alive [K, R]``, numpy or tensors.  Returns ``(state, packs)`` with
+    ``packs`` the ``[K, total]`` compact buffers, still on the device."""
+    res = _replay_loop(state, None, None, None, xs, P, exec_budget,
+                       scat_budget, lag_budget, 0)
+    return res[0], res[4]
 
 
-def replay_scan_ticks_mixed(*args, **kwargs):
-    raise NotImplementedError(
-        "register-plane replay comes with the register slice of the port")
+def replay_scan_ticks_lease(state, lease, xs, P: int, exec_budget: int,
+                            scat_budget: int, lag_budget: int,
+                            lease_horizon: int):
+    """Lease twin: returns ``(state, lease, packs, lp_last, waits)`` with
+    the FINAL tick's lease pack and the per-tick fenced-group counts."""
+    st, _, ls, _, packs, lp_last, waits = _replay_loop(
+        state, None, lease, None, xs, P, exec_budget, scat_budget,
+        lag_budget, lease_horizon)
+    return st, ls, packs, lp_last, waits
 
 
-def replay_scan_ticks_mixed_lease(*args, **kwargs):
-    raise NotImplementedError(
-        "register- and lease-plane replay come with the register and lease "
-        "slices of the port")
+def replay_scan_ticks_mixed(state, rstate, xs, P: int, exec_budget: int,
+                            scat_budget: int, lag_budget: int):
+    """Mixed-plane twin: per tick the two planes' compact buffers ride one
+    ``[total_l + total_r]`` row (the host slices it per plane).  Returns
+    ``(state, rstate, packs)``."""
+    st, rst, _, _, packs, _, _ = _replay_loop(
+        state, rstate, None, None, xs, P, exec_budget, scat_budget,
+        lag_budget, 0)
+    return st, rst, packs
+
+
+def replay_scan_ticks_mixed_lease(state, rstate, lease, rlease, xs, P: int,
+                                  exec_budget: int, scat_budget: int,
+                                  lag_budget: int, lease_horizon: int):
+    """Mixed-plane lease twin: returns ``(state, rstate, lease, rlease,
+    packs, (lp_l, lp_r), waits)``."""
+    return _replay_loop(state, rstate, lease, rlease, xs, P, exec_budget,
+                        scat_budget, lag_budget, lease_horizon)
 
 
 # --------------------------------------------------------------------------

@@ -15,12 +15,18 @@ It owns:
   rejected intake is re-queued;
 * the optional write-ahead log (``wal=PaxosLogger(...)``, ``wal/logger.py``):
   admin ops and each tick's placed intake are journaled, and client
-  responses are held until an fsync covers the tick that produced them.
+  responses are held until an fsync covers the tick that produced them;
+* the optional planes: register groups (``register_groups``: a second W=1
+  state plane, rows ``[G, G + G_reg)`` of the composite row space), read
+  leases (``read_leases``: lease columns folded in the tick, local reads
+  against their host mirror) and group health (``group_health``: stall,
+  churn and heat columns reduced to an O(K) pack per tick).  Every
+  combination ticks through the one dispatch ``ops.tick.paxos_tick_health``.
 
 This slice ports the single-device path.  Options whose planes come with
-later slices of the port (register groups, leases, the health plane, the
-device app, the mesh, placement, the measurement baselines) raise
-``NotImplementedError`` at construction.
+later slices of the port (the device app, the mesh, placement, fast
+re-election, the measurement baselines) raise ``NotImplementedError`` at
+construction.
 """
 
 from __future__ import annotations
@@ -42,9 +48,13 @@ from ..models.replicable import Replicable
 from ..obs.metrics import registry as _obsreg
 from ..obs.phase import BLOCKING_PHASE as _BLOCKING_PHASE
 from ..obs.phase import phase_clock as _phase_clock
-from ..ops.tick import (CompactHostOutbox, HostOutbox, TickInbox,
-                        frontier_rows, paxos_tick_compact, paxos_tick_packed,
-                        sweep_frontier, unpack_compact, unpack_outbox)
+from ..ops.tick import (LP_ASN, LP_EPOCH, LP_HOLDER, LP_UNTIL, LP_WAIT,
+                        CompactHostOutbox, HostOutbox, TickInbox,
+                        frontier_rows, health_clear_rows, init_health,
+                        init_lease, lease_clear_rows, merge_compact_outbox,
+                        merge_health, merge_outbox, paxos_tick_health,
+                        sweep_frontier, unpack_compact, unpack_health,
+                        unpack_outbox)
 from ..types import NO_REQUEST
 from ..utils.diskmap import DiskMap
 from ..utils.intmap import RowAllocator
@@ -76,9 +86,6 @@ def _unported(cfg: GigapaxosTpuConfig) -> List[str]:
     """Names of the set options whose planes this slice does not port."""
     p = cfg.paxos
     checks = [
-        (p.register_groups, "paxos.register_groups (the register slice)"),
-        (p.read_leases, "paxos.read_leases (the lease slice)"),
-        (p.group_health, "paxos.group_health (the health slice)"),
         (p.device_app, "paxos.device_app (the device-KV slice)"),
         (p.mesh_devices, "paxos.mesh_devices (the mesh slice)"),
         (p.fast_reelection, "paxos.fast_reelection (the Mode B slice)"),
@@ -116,8 +123,15 @@ class PaxosManager:
         self.G = cfg.paxos.max_groups
         self.W = cfg.paxos.window
         self.P = cfg.paxos.proposals_per_tick
+        # register plane: a second state at W=1; composite row space [0, G)
+        # log rows, [G, G_total) register rows (the row index is the mode
+        # bit), so every row-keyed host structure is sized G_total
+        self.G_reg = cfg.paxos.register_groups
+        self.G_total = self.G + self.G_reg
         self.state = st.init_state(self.R, self.G, self.W, self.device)
-        self.rows = RowAllocator(self.G)
+        self.rstate = (st.init_state(self.R, self.G_reg, 1, self.device)
+                       if self.G_reg else None)
+        self.rows = RowAllocator(self.G_total, split=self.G)
         self.apps = apps
         self.alive = np.ones(self.R, bool)
         self.tick_num = 0
@@ -152,6 +166,76 @@ class PaxosManager:
             "reads_fallback_total",
             help="reads that fell back to a consensus round (no/invalid "
                  "lease or non-quiescent group)", node=self._ov_node)
+        self._reads_local_c = _obsreg().counter(
+            "reads_local_total",
+            help="reads answered locally under a valid lease (no consensus "
+                 "round)", node=self._ov_node)
+        self._lease_waits_c = _obsreg().counter(
+            "lease_waits_total",
+            help="per-tick count of groups whose coordinator is write-"
+                 "fenced waiting out a prior holder's lease",
+            node=self._ov_node)
+        self._lease_gauge = _obsreg().gauge(
+            "lease_holder_groups",
+            help="groups with a currently granted read lease",
+            node=self._ov_node)
+        _obsreg().gauge(
+            "register_groups",
+            help="register-mode (RMW) row capacity of this manager",
+        ).set(self.G_reg)
+        self._hg_backlog = _obsreg().gauge(
+            "health_backlogged_groups",
+            help="groups with pending intake, an unexecuted assignment "
+                 "frontier, or an unresolved election (health fold)",
+            node=self._ov_node)
+        self._hg_wedged = _obsreg().gauge(
+            "health_wedged_groups",
+            help="backlogged groups with no commit/exec progress for at "
+                 "least health_wedge_ticks ticks", node=self._ov_node)
+        self._hg_max_stall = _obsreg().gauge(
+            "health_max_stall_ticks",
+            help="largest per-group stall age (ticks since last progress "
+                 "among backlogged groups)", node=self._ov_node)
+        self._hg_max_churn = _obsreg().gauge(
+            "health_max_churn",
+            help="largest per-group coordinator-churn EWMA (handoffs over "
+                 "a decaying window)", node=self._ov_node)
+        self._hg_lease_wait = _obsreg().gauge(
+            "health_lease_wait_groups",
+            help="groups write-fenced behind a prior holder's lease this "
+                 "tick (0 when leases are off)", node=self._ov_node)
+        # ---- read leases: [G]/[G_reg] columns folded in the tick; the
+        # host keeps the last tick's [5, G_total] lease pack (_lease_np)
+        # and a lockstep clock for the local-read check ----
+        self._lease = self._rlease = None
+        self._lease_np = None
+        self._lease_clock = 0
+        self._lease_skew_ticks = 0    # test hook: injected holder clock skew
+        self._lease_horizon = int(cfg.paxos.lease_ticks)
+        self._lease_margin = int(cfg.paxos.lease_margin_ticks)
+        if cfg.paxos.read_leases:
+            self._lease = init_lease(self.G, self._lease_margin, self.device)
+            self._rlease = (init_lease(self.G_reg, self._lease_margin,
+                                       self.device) if self.G_reg else None)
+            self._lease_np = np.zeros((5, self.G_total), np.int32)
+            self._lease_np[LP_HOLDER, :] = -1
+        # ---- group health: [G]/[G_reg] columns folded in the tick; the
+        # host consumes one O(K) pack per completed tick ----
+        self._health = self._rhealth = None
+        self._health_view = None      # HealthView as of last completed tick
+        self._health_clock = 0        # host lockstep clock (+1/completed tick)
+        self._health_topk = int(cfg.paxos.health_topk)
+        self._health_wedge = int(cfg.paxos.health_wedge_ticks)
+        self._health_shift = int(cfg.paxos.health_decay_shift)
+        self._wedged_rows: set = set()   # last tick's wedged top-K rows
+        self._topk_stuck: tuple = ()     # last tick's stuck top-K rows
+        #: optional ``obs.flight.FlightRecorder``: health transitions
+        #: (newly wedged / recovered rows, top-K churn) land in its ring
+        self.flight = None
+        if cfg.paxos.group_health:
+            self._health = init_health(self.G, self.device)
+            self._rhealth = (init_health(self.G_reg, self.device)
+                             if self.G_reg else None)
         self._stopped_rows: set[int] = set()
         # ---- pause (deactivation): name -> HotRestoreInfo; row freed ----
         # paused records beyond spill_cache page to spill_dir/<spill_ns>
@@ -160,20 +244,26 @@ class PaxosManager:
             if cfg.paxos.spill_dir else None,
             cfg.paxos.spill_cache,
         )
-        self._last_active = np.zeros(self.G, np.int64)
+        self._last_active = np.zeros(self.G_total, np.int64)
         self._row_outstanding = collections.Counter()
         # host mirrors of config state (member mask / group size): the
         # tick never writes these, so the hot path reads numpy instead of
         # the device
-        self._member_np = np.zeros((self.R, self.G), bool)
-        self._n_members_np = np.zeros(self.G, np.int32)
-        self._stopped_np = np.zeros(self.G, bool)
-        self._row_name_np = np.empty(self.G, object)
-        self._member_bits = np.zeros(self.G, np.int64)
-        self._member_ord = None  # lazy [R, G] cumulative member ordinal
+        self._member_np = np.zeros((self.R, self.G_total), bool)
+        self._n_members_np = np.zeros(self.G_total, np.int32)
+        self._stopped_np = np.zeros(self.G_total, bool)
+        self._row_name_np = np.empty(self.G_total, object)
+        self._member_bits = np.zeros(self.G_total, np.int64)
+        self._member_ord = None  # lazy [R, G_total] cumulative member ordinal
+        #: per-row window / laggard threshold: W for log rows, 1 for
+        #: register rows (one version behind already needs the register
+        #: shipped: there is no ring to catch up from)
+        self._w_np = np.full(self.G_total, self.W, np.int32)
+        self._w_np[self.G:] = 1
         # ---- compacted-outbox / bulk-propose machinery ----
         self._use_compact = bool(cfg.paxos.compact_outbox)
-        self._exec_budget = cfg.paxos.exec_budget or max(4096, 2 * self.G)
+        self._exec_budget = (cfg.paxos.exec_budget
+                             or max(4096, 2 * self.G_total))
         self._lag_budget = max(64, cfg.paxos.lag_budget)
         bc = cfg.paxos.bulk_capacity or max(1 << 16, 4 * self.G)
         self._bulk_cap = 1 << (bc - 1).bit_length()
@@ -200,17 +290,17 @@ class PaxosManager:
         #: HOST-APPLIED execution watermark [R, G]: how far each replica's
         #: app has executed (device exec_slot runs one pipelined tick
         #: ahead); the payload sweep judges "everyone passed" against it
-        self._host_exec = np.zeros((self.R, self.G), np.int32)
+        self._host_exec = np.zeros((self.R, self.G_total), np.int32)
         # first-occurrence scratch (generation-tagged so no per-tick clear)
-        self._scr_pos = np.zeros(self.R * self.G, np.int64)
-        self._scr_gen = np.zeros(self.R * self.G, np.int64)
+        self._scr_pos = np.zeros(self.R * self.G_total, np.int64)
+        self._scr_gen = np.zeros(self.R * self.G_total, np.int64)
         self._scr2_pos = None  # store-capacity scratch, allocated w/ store
         self._scr2_gen = None
         self._gen = 0
         # inbox staging buffers; entries placed last tick are zeroed
         # lazily at the next build
-        self._in_req = np.zeros((self.R, self.P, self.G), np.int32)
-        self._in_stp = np.zeros((self.R, self.P, self.G), bool)
+        self._in_req = np.zeros((self.R, self.P, self.G_total), np.int32)
+        self._in_stp = np.zeros((self.R, self.P, self.G_total), bool)
         self._inbox_alive = self.alive.copy()  # liveness of the last inbox
         self._placed: list = []
         #: pipelined mode: the last dispatched tick, completed at the start
@@ -236,45 +326,301 @@ class PaxosManager:
             self.wal.attach(self)
 
     # ------------------------------------------------------ device helpers
+    # The composite row space is [0, G) log + [G, G_total) register rows;
+    # these helpers are the only places host code maps a composite row onto
+    # one of the two device planes.
+
+    def is_register_row(self, row: int) -> bool:
+        return row >= self.G
+
+    def _plane_state(self, row: int):
+        """(plane_state, plane_row) for a composite row."""
+        if row >= self.G:
+            return self.rstate, row - self.G
+        return self.state, row
+
     def _dev_exec_np(self) -> np.ndarray:
-        """[R, G] device exec watermark on the host."""
-        return st.to_host(self.state.exec_slot)
+        """Composite [R, G_total] device exec watermark on the host."""
+        ex = st.to_host(self.state.exec_slot)
+        if self.rstate is None:
+            return ex
+        return np.hstack([ex, st.to_host(self.rstate.exec_slot)])
 
     def _dev_exec_col(self, row: int) -> np.ndarray:
-        return st.to_host(self.state.exec_slot[:, row])
+        pst, prow = self._plane_state(row)
+        return st.to_host(pst.exec_slot[:, prow])
 
     def _set_exec_status(self, r: int, row: int, exec_slot: int,
                          status: int) -> None:
-        """Point-write a replica's exec watermark + status (checkpoint
-        transfer apply), in place."""
-        self.state.exec_slot[r, row] = exec_slot
-        self.state.status[r, row] = status
+        """Point-write a replica's exec watermark + status on the owning
+        plane (checkpoint transfer apply), in place."""
+        pst, prow = self._plane_state(row)
+        pst.exec_slot[r, prow] = exec_slot
+        pst.status[r, prow] = status
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ------------------------------------------------------------ lease plane
+    # The device fold owns grant/renew/expiry and the write fence; the host
+    # mirrors each completed tick's [5, G] lease pack and answers reads
+    # against it.
+
+    def _adopt_lease_pack(self, lease_pack) -> None:
+        """Consume one tick's lease pack(s) at completion (the device sync
+        point).  Mixed planes hand a (log, register) pair that lands side
+        by side in the composite [5, G_total] mirror."""
+        if isinstance(lease_pack, tuple):
+            lp = np.concatenate([st.to_host(lease_pack[0]),
+                                 st.to_host(lease_pack[1])], axis=1)
+        else:
+            lp = st.to_host(lease_pack)
+        self._lease_np = lp
+        self._lease_clock += 1  # lockstep with the device fold's clock+1
+        self._lease_gauge.set(int((lp[LP_HOLDER] >= 0).sum()))
+        waits = int(lp[LP_WAIT].sum())
+        if waits:
+            self._lease_waits_c.inc(waits)
+
+    def _split_rows(self, rows):
+        """Composite rows as (log-plane rows, register-plane rows)."""
+        rows = np.asarray(rows, np.int64)
+        return rows[rows < self.G], rows[rows >= self.G] - self.G
+
+    def _lease_drop_rows(self, rows) -> None:
+        """Reset lease columns for freed rows (remove/pause): a recycled
+        row must not inherit the previous occupant's lease."""
+        if self._lease is None or not len(rows):
+            return
+        if self._pending_out is not None:
+            # a pending tick's lease pack predates this drop; complete it
+            # first so adoption cannot resurrect the dropped holder
+            self.drain_pipeline()
+        lrows, rrows = self._split_rows(rows)
+        if len(lrows):
+            lease_clear_rows(self._lease, lrows)
+        if len(rrows) and self._rlease is not None:
+            lease_clear_rows(self._rlease, rrows)
+        # a fresh mirror: whoever holds the last tick's stays unchanged
+        self._lease_np = self._lease_np.copy()
+        self._lease_np[LP_HOLDER, rows] = -1
+        self._lease_np[LP_UNTIL, rows] = 0
+
+    @_locked
+    def lease_info(self, name: str) -> Optional[dict]:
+        """Host view of one group's lease columns as of the last completed
+        tick (None when leases are off or the group is not resident)."""
+        if self._lease_np is None:
+            return None
+        row = self.rows.row(name)
+        if row is None:
+            return None
+        lp = self._lease_np
+        return {
+            "holder": int(lp[LP_HOLDER, row]),
+            "epoch": int(lp[LP_EPOCH, row]),
+            "until": int(lp[LP_UNTIL, row]),
+            "asn": int(lp[LP_ASN, row]),
+            "clock": self._lease_clock,
+        }
+
+    # ----------------------------------------------------------- health plane
+    # The device owns the dense stall/churn/heat columns; the host consumes
+    # one O(K) pack per completed tick: gauges, log2 histograms and the
+    # top-K stuckest / churniest / hottest rows.
+
+    def _adopt_health_pack(self, health_pack) -> None:
+        """Consume one tick's health pack(s) at completion.  Mixed planes
+        hand a (log, register) pair merged with register rows re-offset
+        into the composite row space."""
+        K = self._health_topk
+        if isinstance(health_pack, tuple):
+            hv = merge_health(
+                unpack_health(health_pack[0], min(K, self.G)),
+                unpack_health(health_pack[1], min(K, self.G_reg)),
+                self.G, K)
+        else:
+            hv = unpack_health(health_pack, min(K, self.G))
+        self._health_view = hv
+        self._health_clock += 1  # lockstep with the device fold's clock+1
+        self._hg_backlog.set(int(hv.backlog))
+        self._hg_wedged.set(int(hv.wedged))
+        self._hg_max_stall.set(int(hv.max_stall))
+        self._hg_max_churn.set(int(hv.max_churn) / 16.0)  # Q4 -> handoffs
+        self._hg_lease_wait.set(int(hv.lease_wait))
+        # transitions -> flight ring: newly wedged rows, recoveries and
+        # top-K membership churn
+        stall_by_row = {int(r): int(v)
+                        for v, r in zip(hv.stuck_val, hv.stuck_row)
+                        if int(v) > 0}
+        wedged_now = {r for r, v in stall_by_row.items()
+                      if v >= self._health_wedge}
+        stuck_now = tuple(sorted(stall_by_row))
+        if self.flight is not None:
+            for r in sorted(wedged_now - self._wedged_rows):
+                self.flight.record("group_wedged", {
+                    "row": r, "name": self.rows.name(r),
+                    "stall_ticks": stall_by_row[r],
+                    "tick": self.tick_num})
+            for r in sorted(self._wedged_rows - wedged_now):
+                self.flight.record("group_recovered", {
+                    "row": r, "name": self.rows.name(r),
+                    "tick": self.tick_num})
+            if stuck_now != self._topk_stuck:
+                self.flight.record("health_topk", {
+                    "stuck_rows": list(stuck_now), "tick": self.tick_num})
+        self._wedged_rows = wedged_now
+        self._topk_stuck = stuck_now
+
+    def _health_drop_rows(self, rows) -> None:
+        """Reset health columns for freed rows (remove/pause): a recycled
+        row must not inherit the previous occupant's stall age or churn."""
+        if self._health is None or not len(rows):
+            return
+        if self._pending_out is not None:
+            # a pending tick's health pack predates this drop
+            self.drain_pipeline()
+        lrows, rrows = self._split_rows(rows)
+        if len(lrows):
+            health_clear_rows(self._health, lrows)
+        if len(rrows) and self._rhealth is not None:
+            health_clear_rows(self._rhealth, rrows)
+
+    @_locked
+    def health_snapshot(self) -> Optional[dict]:
+        """JSON-friendly view of the last completed tick's health pack
+        (None when the fold is off or no tick has completed).  Top-K rows
+        are resolved back to group names."""
+        hv = self._health_view
+        if hv is None:
+            return None
+
+        def _top(vals, rs, scale=1):
+            return [{"row": int(r), "name": self.rows.name(int(r)),
+                     "value": int(v) / scale}
+                    for v, r in zip(vals, rs) if int(v) > 0]
+
+        return {
+            "clock": self._health_clock,
+            "allocated": int(hv.alloc),
+            "backlogged": int(hv.backlog),
+            "wedged": int(hv.wedged),
+            "max_stall_ticks": int(hv.max_stall),
+            "max_churn": int(hv.max_churn) / 16.0,
+            "lease_wait": int(hv.lease_wait),
+            "wedge_ticks": self._health_wedge,
+            "hist_stall": [int(x) for x in hv.hist_stall],
+            "hist_churn": [int(x) for x in hv.hist_churn],
+            "top_stuck": _top(hv.stuck_val, hv.stuck_row),
+            "top_churny": _top(hv.churn_val, hv.churn_row, scale=16),
+            "top_hot": _top(hv.heat_val, hv.heat_row, scale=16),
+        }
+
+    @_locked
+    def group_info(self, name: str) -> Optional[dict]:
+        """Single-group drill-down: ballot, frontiers, member liveness,
+        lease columns, register version, pending intake, health columns and
+        a bounded WAL tail, all from row gathers.  None when the group is
+        not resident here.  A bare service name resolves to its highest
+        resident epoch (``svc`` -> ``svc#3``)."""
+        row = self.rows.row(name)
+        if row is None and "#" not in name:
+            prefix, best = name + "#", None
+            for pname in self.rows.names():
+                base, sep, etxt = pname.rpartition("#")
+                if base == name and sep and etxt.isdigit():
+                    if best is None or int(etxt) > best:
+                        best = int(etxt)
+            if best is not None:
+                name = prefix + str(best)
+                row = self.rows.row(name)
+        if row is None:
+            return None
+        pst, prow = self._plane_state(row)
+        register = row >= self.G
+        col = {f: st.to_host(getattr(pst, f)[:, prow])
+               for f in ("member", "bal_num", "bal_coord", "exec_slot",
+                         "next_slot", "status", "coord_active",
+                         "coord_preparing")}
+        members = [int(r) for r in np.nonzero(col["member"])[0]]
+        replicas = {
+            int(r): {
+                "alive": bool(self.alive[r]),
+                "ballot": [int(col["bal_num"][r]), int(col["bal_coord"][r])],
+                "exec_slot": int(col["exec_slot"][r]),
+                "next_slot": int(col["next_slot"][r]),
+                "status": int(col["status"][r]),
+                "coordinator": bool(col["coord_active"][r]),
+                "preparing": bool(col["coord_preparing"][r]),
+            }
+            for r in members
+        }
+        info = {
+            "name": name,
+            "row": int(row),
+            "mode": "register" if register else "log",
+            "epoch": int(pst.epoch[prow]),
+            "members": members,
+            "replicas": replicas,
+            "stopped": row in self._stopped_rows,
+            "pending_intake": len(self._queues.get(row) or ())
+            + int(self._row_outstanding[row]),
+            "tick": self.tick_num,
+        }
+        if register and members:
+            # a register row's executed slot is its monotone version
+            info["version"] = max(int(col["exec_slot"][r]) for r in members)
+        if self._lease_np is not None:
+            info["lease"] = self.lease_info(name)
+        if self._health is not None:
+            h = self._rhealth if register else self._health
+            info["health"] = {
+                "stall_ticks": int(h.clock) - int(h.last_active[prow]),
+                "coordinator": int(h.last_coord[prow]),
+                "churn": int(h.churn[prow]) / 16.0,
+                "heat": int(h.heat[prow]) / 16.0,
+            }
+        if self.wal is not None:
+            try:
+                info["wal_tail"] = self.wal.tail_for_row(row, name)
+            except Exception:
+                info["wal_tail"] = None
+        return info
+
     # ------------------------------------------------------------------ admin
     @_locked
     def create_paxos_instance(self, name: str, members: List[int],
-                              epoch: int = 0) -> bool:
-        """createPaxosInstance analog."""
+                              epoch: int = 0, register: bool = False) -> bool:
+        """createPaxosInstance analog.  ``register=True`` births the group
+        on the register plane (needs ``paxos.register_groups > 0``); the
+        mode is permanent for the group's lifetime and journaled with the
+        create."""
         if name in self.rows or name in self._paused:
             return False
-        row = self._alloc_row(name)
+        if register and not self.G_reg:
+            raise ValueError(
+                "register-mode create requires paxos.register_groups > 0")
+        if register:
+            if self.rows.full(hi=True):
+                return False
+            row = self.rows.alloc(name, hi=True)
+        else:
+            row = self._alloc_row(name)
         if row is None:
             return False
         mask = np.zeros((1, self.R), bool)
         for m in members:
             mask[0, m] = True
-        st.create_groups(self.state, np.array([row]), mask,
+        pst, prow = self._plane_state(row)
+        st.create_groups(pst, np.array([prow]), mask,
                          np.array([epoch], np.int32))
         self._set_member_row(row, mask[0], name)
         self._stopped_rows.discard(row)
         self._stopped_np[row] = False
         self._last_active[row] = self.tick_num
         if self.wal is not None:
-            self.wal.log_create(name, members, epoch)
+            self.wal.log_create(name, members, epoch, register=register)
         return True
 
     def create_paxos_instances(
@@ -352,8 +698,11 @@ class PaxosManager:
         # a pipelined pending outbox may still reference this row under its
         # OLD name<->row mapping; complete it before the row is freed
         self.drain_pipeline()
-        st.free_groups(self.state, np.array([row]))
+        pst, prow = self._plane_state(row)
+        st.free_groups(pst, np.array([prow]))
         self._clear_member_rows([row])
+        self._lease_drop_rows([row])
+        self._health_drop_rows([row])
         self.rows.free(name)
         self._fail_queued(row)
         self._purge_row_outstanding(row)
@@ -437,7 +786,7 @@ class PaxosManager:
         if self.bulk is not None and (
             self.bulk.n_live or self._bulk_leftover.size or self._bulk_chunks
         ):
-            bulk_ref = np.zeros(self.G, bool)
+            bulk_ref = np.zeros(self.G_total, bool)
             bulk_ref[self.bulk.row[self.bulk.valid]] = True
             parts = ([self._bulk_leftover] if self._bulk_leftover.size
                      else []) + self._bulk_chunks
@@ -453,6 +802,10 @@ class PaxosManager:
         for name, row in cands:
             if len(paused) >= limit:
                 break
+            if row >= self.G:
+                # register rows never pause: their whole footprint is the
+                # register cell (no ring to reclaim)
+                continue
             if self.tick_num - self._last_active[row] < idle_after:
                 if not ignore_idle:
                     break  # sorted: everything later is hotter
@@ -486,6 +839,8 @@ class PaxosManager:
             rows_to_free.append(row)
         st.free_groups(self.state, np.array(rows_to_free))
         self._clear_member_rows(rows_to_free)
+        self._lease_drop_rows(rows_to_free)
+        self._health_drop_rows(rows_to_free)
         for name in names:
             row = self.rows.free(name)
             self._stopped_rows.discard(row)
@@ -530,20 +885,41 @@ class PaxosManager:
         callback: Optional[Callable[[int, bytes], None]] = None,
         deadline: Optional[int] = None,
     ) -> Optional[int]:
-        """Linearizable read: a CLS_READ propose through the ordered stream
-        (a classic consensus read).
+        """Linearizable read.
 
-        ``payload`` must be side-effect-free under the app's ``execute``
-        (it executes at every member).  The callback fires ``(rid,
-        response)`` like propose's.  The lease-local branch, which answers
-        from the holder's app with no consensus round, comes with the lease
-        slice: ``read_leases`` is refused at construction until then.
+        Answered LOCALLY (no consensus round, no journal entry) iff the last
+        completed tick's lease mirror shows a live holder whose lease has
+        not expired (less any injected skew) AND the group is quiescent:
+        the holder's executed frontier equals the accepted frontier as of
+        that same tick, so every acked write is applied at the holder.
+        Otherwise the read falls back to a CLS_READ propose through the
+        ordered stream (a classic consensus read).
+
+        ``payload`` must be side-effect-free under the app's ``execute``.
+        The callback fires ``(rid, response)`` like propose's; local reads
+        use rid 0 and fire synchronously.
         """
         if deadline is not None and _overload.expired(deadline):
             _overload.count_expired("intake", self._ov_node)
             if callback is not None:
                 callback(_overload.RID_EXPIRED, None)
             return None
+        row = self.rows.row(name)  # racy read: benign (propose's argument)
+        lp = self._lease_np
+        if (lp is not None and row is not None
+                and row not in self._stopped_rows):
+            holder = int(lp[LP_HOLDER, row])
+            if (holder >= 0 and self.alive[holder]
+                    and (self._lease_clock - self._lease_skew_ticks)
+                    < int(lp[LP_UNTIL, row])
+                    and int(self._host_exec[holder, row])
+                    == int(lp[LP_ASN, row])):
+                resp = self.apps[holder].execute(name, payload, 0)
+                self._reads_local_c.inc()
+                self.stats["local_reads"] += 1
+                if callback is not None:
+                    callback(0, resp)
+                return 0
         self._reads_fallback_c.inc()
         return self.propose(name, payload, callback, deadline=deadline,
                             cls=_overload.CLS_READ)
@@ -1035,7 +1411,8 @@ class PaxosManager:
                     qk = q[keep]
                     q, idx, rows, entries = (q[sel], idx[sel], rows[sel],
                                              entries[sel])
-        key = (entries.astype(np.int64) * self.G + rows).astype(np.intp)
+        key = (entries.astype(np.int64) * self.G_total
+               + rows).astype(np.intp)
         # up to P requests per (entry, row) per tick, in arrival order
         p = np.full(len(q), -1, np.int32)
         remaining = np.arange(len(q))
@@ -1114,7 +1491,9 @@ class PaxosManager:
             ms = self._member_np[:, key[1]]
             if not ms[key[0]]:
                 continue
-            if exec_slot[ms, key[1]].max() - exec_slot[key] >= self.W:
+            # per-row window: a register row (W=1) flags at any lag
+            if (exec_slot[ms, key[1]].max() - exec_slot[key]
+                    >= self._w_np[key[1]]):
                 still.append(key)
         if not still:
             return
@@ -1142,17 +1521,27 @@ class PaxosManager:
         pc.mark("intake")
         placed = self._placed
         bulk_placed = self._bulk_placed
-        if self._use_compact:
-            self.state, packed = paxos_tick_compact(
-                self.state, inbox, -1, self._exec_budget, self._lag_budget)
-        else:
-            self.state, packed = paxos_tick_packed(self.state, inbox, -1)
+        # one dispatch covers every combination of planes and folds; absent
+        # ones are None (the packed path runs with no exec budget)
+        (self.state, self.rstate, self._lease, self._rlease, self._health,
+         self._rhealth, pk_l, pk_r, lp_l, lp_r, hp_l,
+         hp_r) = paxos_tick_health(
+            self.state, self.rstate, self._lease, self._rlease, self._health,
+            self._rhealth, inbox, -1,
+            self._exec_budget if self._use_compact else 0, self._lag_budget,
+            self._lease_horizon, self._use_compact, self._health_wedge,
+            self._health_shift, self._health_topk)
+        packed = pk_l if pk_r is None else (pk_l, pk_r)
+        lease_pack = lp_l if lp_r is None else (lp_l, lp_r)
+        health_pack = hp_l if hp_r is None else (hp_l, hp_r)
         # device sweep frontier: computed only at the dispatch whose
         # completion runs _sweep_outstanding, from THIS tick's post-state,
-        # with the O(rows) gather enqueued right behind it
+        # with the O(rows) gather enqueued right behind it.  Mixed planes
+        # skip it (its [G]-indexed gathers cover the log plane only) and
+        # sweep from the composite host reductions.
         frontier = None
         done_at = self.tick_num + (2 if self.cfg.paxos.pipeline_ticks else 1)
-        if done_at % self._sweep_every == 0 and (
+        if self.rstate is None and done_at % self._sweep_every == 0 and (
             self.outstanding or (self.bulk is not None and self.bulk.n_live)
         ):
             frontier = self._frontier_gather(sweep_frontier(
@@ -1178,34 +1567,57 @@ class PaxosManager:
                 # drain_pipeline may have completed the previous tick's
                 # outbox moments ago; hand that stashed result out
                 out, self._drained_out = self._drained_out, None
-            self._pending_out = (packed, placed, bulk_placed, frontier)
+            self._pending_out = (packed, placed, bulk_placed, frontier,
+                                 lease_pack, health_pack)
             # a due checkpoint must cover on-host effects of every tick the
             # device state contains — drain the one-tick pipeline first
             if self.wal is not None and self.wal.checkpoint_due():
                 self.drain_pipeline()
         else:
-            out = self._complete_tick(packed, placed, bulk_placed, frontier)
+            out = self._complete_tick(packed, placed, bulk_placed, frontier,
+                                      lease_pack, health_pack)
         if self.wal is not None:
             self.wal.maybe_checkpoint()
         pc.end()
         return out
 
     def _complete_tick(self, packed, placed: list, bulk_placed=None,
-                       frontier=None):
+                       frontier=None, lease_pack=None, health_pack=None):
         """Consume one tick's outbox (the device->host copy is the sync
-        point): requeue rejected intake, execute the ordered decision
-        stream, release callbacks, periodic GC."""
+        point): adopt the lease and health packs, requeue rejected intake,
+        execute the ordered decision stream, release callbacks, periodic
+        GC.  Mixed planes hand a (log, register) pair of buffers, merged
+        into the composite row space."""
         pc = self._pc
         # re-arm without observing: drain_pipeline completes a deferred tick
         # outside tick(), and cross-call idle time must not land in "tally"
         pc.touch()
+        if lease_pack is not None:
+            self._adopt_lease_pack(lease_pack)
+        if health_pack is not None:
+            self._adopt_health_pack(health_pack)
         if self._use_compact:
-            out = unpack_compact(packed, self.R, self.G, self._exec_budget,
-                                 self._lag_budget)
+            if isinstance(packed, tuple):
+                out = merge_compact_outbox(
+                    unpack_compact(packed[0], self.R, self.G,
+                                   self._exec_budget, self._lag_budget),
+                    unpack_compact(packed[1], self.R, self.G_reg,
+                                   self._exec_budget, self._lag_budget),
+                    self.G)
+            else:
+                out = unpack_compact(packed, self.R, self.G,
+                                     self._exec_budget, self._lag_budget)
             pc.mark("tally")
             self._process_compact(out, placed, bulk_placed)
         else:
-            out = unpack_outbox(packed, self.R, self.P, self.W, self.G)
+            if isinstance(packed, tuple):
+                # the register plane is W=1 over G_reg columns; its exec
+                # lanes are zero-padded up to W in the merge
+                out = merge_outbox(
+                    unpack_outbox(packed[0], self.R, self.P, self.W, self.G),
+                    unpack_outbox(packed[1], self.R, self.P, 1, self.G_reg))
+            else:
+                out = unpack_outbox(packed, self.R, self.P, self.W, self.G)
             pc.mark("tally")
             self._process_outbox(out, placed, bulk_placed)
         pc.mark("execute")
@@ -1284,7 +1696,9 @@ class PaxosManager:
         # self-heal laggards in full-outbox mode too: a replica >= W behind
         # can never catch up by ring sync (deferred to tick())
         if self.cfg.paxos.auto_laggard_sync:
-            self._lag_sync_due.extend(zip(*np.where(out.lag >= self.W)))
+            # per-row window: register rows (W=1) flag at any lag
+            self._lag_sync_due.extend(
+                zip(*np.where(out.lag >= self._w_np[None, :])))
 
     def _execute_one(self, r: int, row: int, name: str, rid: int, slot: int,
                      is_stop: bool) -> None:
@@ -1505,7 +1919,7 @@ class PaxosManager:
             sel = np.nonzero(
                 s.valid & s.responded & (s.slot >= 0) & any_live[s.row]
                 & ((s.slot < amin[s.row])
-                   | (s.slot < base[s.row] - self.W))
+                   | (s.slot < base[s.row] - self._w_np[s.row]))
             )[0]
             if len(sel):
                 s.valid[sel] = False
@@ -1527,7 +1941,7 @@ class PaxosManager:
             marks = [int(exec_slot[m, rec.row]) for m in ms]
             dbase = max(int(dev_exec[m, rec.row]) for m in ms)
             if (all(mk > rec.slot for mk in marks)
-                    or rec.slot < dbase - self.W):  # strict
+                    or rec.slot < dbase - self._w_np[rec.row]):  # strict
                 dead.append(rid)
         for rid in dead:
             self._row_outstanding[self.outstanding[rid].row] -= 1
@@ -1624,9 +2038,12 @@ class PaxosManager:
             donor = max(donors, key=lambda m: exec_slot[m])
         if exec_slot[donor] <= exec_slot[r]:
             return False
+        # "ship the register": for a register row the checkpoint IS the
+        # register value, so the same transfer covers both planes
         ckpt = self.apps[donor].checkpoint(name)
         donor_exec = int(exec_slot[donor])
-        donor_status = int(self.state.status[donor, row])
+        pst, prow = self._plane_state(row)
+        donor_status = int(pst.status[donor, prow])
         if self.wal is not None:
             self.wal.log_sync(r, name, int(donor), donor_exec, donor_status,
                               ckpt)
@@ -1728,7 +2145,8 @@ class PaxosManager:
             l_row = out.l_row if out is not None else self._lag_pending[1]
             pairs = zip(l_rep, l_row)
         else:
-            pairs = zip(*np.where(np.asarray(out.lag) >= self.W))
+            pairs = zip(*np.where(np.asarray(out.lag)
+                                  >= self._w_np[None, :]))
         n = 0
         for r, row in pairs:
             if not self.alive[r]:

@@ -187,9 +187,10 @@ class PaxosReplicaCoordinator(AbstractReplicaCoordinator):
         callback: Optional[Callable[[int, Optional[bytes]], None]] = None,
         deadline: Optional[int] = None,
     ) -> Optional[int]:
-        """Read-path twin of :meth:`coordinate_request`: a CLS_READ
-        consensus round through the ordered stream (the lease-local answer
-        comes with the lease slice)."""
+        """Read-path twin of :meth:`coordinate_request`: answered from the
+        lease holder's app when ``read_leases`` is on and the lease
+        validates (rid 0), else a CLS_READ consensus round through the
+        ordered stream."""
         if self._epoch.get(name) != epoch:
             return None  # wrong/old epoch: client must re-resolve actives
         return self.manager.read(

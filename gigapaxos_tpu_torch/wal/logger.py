@@ -23,9 +23,13 @@ bound replay length; journals older than the oldest kept snapshot are
 garbage collected.
 
 Journals, snapshots and metadata are byte-compatible with the JAX package's
-logger: either package recovers a directory the other wrote.  The register,
-lease, device-KV and mesh planes come with later slices of the port; their
-records and snapshot fields raise ``NotImplementedError`` naming the slice.
+logger: either package recovers a directory the other wrote.  Register-plane
+writes ride ``OP_REG`` records and the register-mode bit the 5-field
+``OP_CREATE``; the register plane and the lease columns snapshot under the
+``reg_``, ``lease_`` and ``rlease_`` prefixes (health columns are observation
+only and never journaled).  The device-KV and mesh planes come with later
+slices of the port; their records and snapshot fields raise
+``NotImplementedError`` naming the slice.
 """
 
 from __future__ import annotations
@@ -66,7 +70,6 @@ _SNAP_FTR = struct.Struct("<II")  # crc32(blob), len(blob); then SNAP_MAGIC
 #: tuple is unambiguous; old journals (raw bodies only) decode unchanged.
 _PAYREF = "\x00payref"
 
-_REGISTER_SLICE = "register-plane records (the register slice of the port)"
 _DEVICE_KV_SLICE = "device-KV records (the device-KV slice of the port)"
 
 
@@ -186,8 +189,9 @@ OP_SYNC = 6  # checkpoint transfer (laggard repair) — state change outside
              # the tick stream, so replay must re-apply it in sequence
 OP_CREATE_AT = 7  # targeted create (placement migration; control-plane
                   # slice): carries the row AND the app seed blob
-OP_REG = 8  # register-plane writes (register slice): placements onto
-            # register rows split out of OP_TICK into a compact record
+OP_REG = 8  # register-plane writes: placements onto register rows split
+            # out of OP_TICK into a compact record of (row, entries) whose
+            # bodies intern through the same payref dedup
 
 
 #: test-only hook: the storage fault-injection plane wraps every journal
@@ -375,8 +379,14 @@ class PaxosLogger:
         return int(os.path.basename(snaps[-1]).split(".")[1])
 
     # ----------------------------------------------------------------- logging
-    def log_create(self, name: str, members: List[int], epoch: int) -> None:
-        self._append(records.dumps((OP_CREATE, name, members, epoch)))
+    def log_create(self, name: str, members: List[int], epoch: int,
+                   register: bool = False) -> None:
+        # the register-mode bit rides as an OPTIONAL 5th field: log-mode
+        # creates keep the 4-tuple, so journals of runs that never touch
+        # register mode stay byte-identical to journals without it
+        rec = ((OP_CREATE, name, members, epoch, True) if register
+               else (OP_CREATE, name, members, epoch))
+        self._append(records.dumps(rec))
         self._sync()
 
     def log_creates(self, names, members: List[int], epoch: int) -> None:
@@ -494,17 +504,39 @@ class PaxosLogger:
         copy of the liveness vector the tick's inbox was built from (the
         device copy is never read back)."""
         m = self.manager
-        placed_with_payloads = []
-        for row, take in m._placed:
-            entries = []
+        g_log, has_reg = m.G, bool(m.G_reg)
+
+        def _entries(take):
+            out = []
             for rid, entry, p in take:
                 rec = m.outstanding.get(rid)
                 if rec is None:
                     continue
-                entries.append((rid, entry, p,
-                                self._ref_payload(rec.payload), rec.stop))
+                out.append((rid, entry, p,
+                            self._ref_payload(rec.payload), rec.stop))
+            return out
+
+        # register-plane placements intern FIRST: the OP_REG record is
+        # appended (and at replay payref-resolved) before OP_TICK, so
+        # first-appearance order must match record order
+        reg_placed = []
+        if has_reg:
+            for row, take in m._placed:
+                if row >= g_log:
+                    entries = _entries(take)
+                    if entries:
+                        reg_placed.append((row, entries))
+        placed_with_payloads = []
+        for row, take in m._placed:
+            if has_reg and row >= g_log:
+                continue
+            entries = _entries(take)
             if entries:
                 placed_with_payloads.append((row, entries))
+        if reg_placed:
+            # appended BEFORE the tick record it belongs to; replay stashes
+            # it and folds the rows into the same tick's inbox
+            self._append(records.dumps((OP_REG, tick_num, reg_placed)))
         bulk = None
         bp = m._bulk_placed
         if bp is not None:
@@ -614,6 +646,21 @@ class PaxosLogger:
         path = self._snapshot_path(new_seq)
         # host COPIES (a CPU tensor's .numpy() is a view of live state)
         state_np = {f: to_host(getattr(m.state, f)) for f in m.state._fields}
+        if m.rstate is not None:
+            # mixed planes: the register plane snapshots alongside under a
+            # reg_ prefix
+            for f in m.rstate._fields:
+                state_np["reg_" + f] = to_host(getattr(m.rstate, f))
+        if m._lease is not None:
+            # lease columns + the lockstep clock under lease_/rlease_;
+            # journal replay re-evolves them tick for tick, so the snapshot
+            # is their only root
+            for f in m._lease._fields:
+                state_np["lease_" + f] = to_host(getattr(m._lease, f))
+            if m._rlease is not None:
+                for f in m._rlease._fields:
+                    state_np["rlease_" + f] = to_host(getattr(m._rlease, f))
+            state_np["lease_pack"] = np.array(m._lease_np)
         meta = self._meta(m)
         # Reset the dedup epoch with the journal roll: each journal is
         # self-contained (every payref resolves to a raw body earlier in
@@ -805,12 +852,14 @@ def _resolve_tick_payrefs(rec, pay_tab: dict):
 
 def _decode_for_replay(raw: bytes, pay_tab: dict):
     """Decode one record for either replay arm: whitelist, payref
-    resolution, and a refusal of the records whose planes this slice
-    does not port (never a silent skip)."""
+    resolution (OP_TICK and OP_REG), and a refusal of the device-KV
+    records, whose plane this slice does not port (never a silent skip)."""
     rec = _load_op(raw, OP_SCHEMA)
     op = rec[0]
     if op == OP_REG:
-        raise NotImplementedError(_REGISTER_SLICE)
+        # resolved even when its tick is snapshot-skipped: later records
+        # may payref bodies first seen here
+        return (OP_REG, rec[1], _resolve_placed(rec[2], pay_tab))
     if op == OP_TICK:
         if len(rec) > 5 and rec[5] is not None:
             raise NotImplementedError(_DEVICE_KV_SLICE)
@@ -950,16 +999,15 @@ def _stage_placed(m, placed, make_record, on_place=None):
 
 
 def _replay_admin_op(m, rec) -> None:
-    """Re-apply one journaled admin op (everything except OP_TICK) —
+    """Re-apply one journaled admin op (everything except OP_TICK/OP_REG) —
     shared by both replay arms; in the batched arm these are the batch
     barriers, because they mutate rows/state outside the tick body."""
     op = rec[0]
     if op == OP_CREATE:
         _, name, members, epoch = rec[:4]
-        if len(rec) > 4 and rec[4]:
-            raise NotImplementedError(_REGISTER_SLICE)
+        register = bool(rec[4]) if len(rec) > 4 else False
         if name not in m.rows:
-            m.create_paxos_instance(name, members, epoch)
+            m.create_paxos_instance(name, members, epoch, register=register)
     elif op == OP_CREATE_AT:
         raise NotImplementedError(
             "targeted creates (OP_CREATE_AT) come with the control-plane "
@@ -986,6 +1034,14 @@ def _journal_paths(log_dir, start_seq, progress):
                         if int(os.path.basename(p).split(".")[1])
                         >= start_seq])
     return paths
+
+
+def _fold_reg(pending_reg, rec):
+    """Fold a stashed OP_REG (register-plane placements, appended just
+    before its tick's OP_TICK) into that OP_TICK record."""
+    if pending_reg is not None and pending_reg[0] == rec[1]:
+        rec = rec[:2] + (list(rec[2]) + pending_reg[1],) + rec[3:]
+    return rec
 
 
 def _post_replay(m) -> None:
@@ -1018,6 +1074,7 @@ def replay_journals(m, log_dir, start_seq, make_record, new_buffers, place,
     # (writer resets _pay_seen at every roll), so an empty table fills in
     # from raw bodies as records — including snapshot-skipped ticks — decode
     pay_tab: dict = {}
+    pending_reg = None  # OP_REG stash for the next OP_TICK
     paths = _journal_paths(log_dir, start_seq, progress)
     for path in paths:
         seq = int(os.path.basename(path).split(".")[1])
@@ -1035,9 +1092,13 @@ def replay_journals(m, log_dir, start_seq, make_record, new_buffers, place,
             except (ValueError, IndexError) as e:
                 if _tolerate_or_raise(path, idx, scan, newest, e):
                     break
+            if rec[0] == OP_REG:
+                pending_reg = (rec[1], rec[2])
+                continue
             if rec[0] != OP_TICK:
                 _replay_admin_op(m, rec)
                 continue
+            rec, pending_reg = _fold_reg(pending_reg, rec), None
             _, tick_num, placed, alive_b = rec[:4]
             bulk_rec = rec[4] if len(rec) > 4 else None
             if tick_num < m.tick_num:
@@ -1103,18 +1164,28 @@ def _sparse_rows(acts: np.ndarray, width: int) -> np.ndarray:
 
 
 class _SparsePlan:
-    """One window's sparse-replay geometry: the gathered global row list,
-    the local row map for the COO columns and for mapping the compact
-    outbox's exec/lag rows back to global."""
+    """One window's sparse-replay geometry: the gathered row lists per
+    plane, the composite-local row map for the COO columns and for mapping
+    the compact outbox's exec/lag rows back to global."""
 
-    def __init__(self, m, rows):
-        self.rows = rows
-        self.width = len(rows)
+    def __init__(self, m, rows_l, rows_r):
+        from ..ops.tick import CompactLayout
+
+        self.rows_l, self.rows_r = rows_l, rows_r
+        self.wl = len(rows_l)
+        self.wr = len(rows_r) if rows_r is not None else 0
+        # combined[i] is the GLOBAL composite row at sparse-local index i
+        # (register rows ride at G + row, mirroring the dense layout)
+        self.combined = (rows_l if rows_r is None else
+                         np.concatenate([rows_l, m.G + rows_r]))
+        self.width = self.wl + self.wr
         # inv[g] is the sparse-local index of global row g; padding (and
         # every row outside the plan) maps to the trash column `width`
-        inv = np.full(m.G + 1, self.width, np.int32)
-        inv[rows] = np.arange(self.width, dtype=np.int32)
+        inv = np.full(m.G_total + 1, self.width, np.int32)
+        inv[self.combined] = np.arange(self.width, dtype=np.int32)
         self.inv = inv
+        self.layout_l = CompactLayout(m.R, self.wl, max(
+            m._exec_budget, _REPLAY_SCAT_MIN), m._lag_budget)
 
 
 class _BatchedReplay:
@@ -1122,7 +1193,8 @@ class _BatchedReplay:
 
     Buffers decoded OP_TICK records and, K at a time, flattens them into a
     :class:`~.columnar.TickSlab`, ships the window as padded COO columns
-    through one :func:`~..ops.tick.replay_scan_ticks` run on the device,
+    through one ``replay_scan_ticks*`` run on the device (both planes and
+    the lease columns when present),
     then runs the host fold strictly in tick order over the per-tick
     compact rows.  The host ordering is the invariant that makes it equal
     to the reference arm: the device work for all K ticks is journal-
@@ -1139,6 +1211,8 @@ class _BatchedReplay:
 
     def __init__(self, m, make_record, new_buffers, place, build_inbox,
                  tick_fn, bulk_replay, batch_ticks: int):
+        from ..ops.tick import CompactLayout
+
         self.m = m
         self.make_record = make_record
         self.new_buffers = new_buffers
@@ -1152,6 +1226,13 @@ class _BatchedReplay:
         self.exec_budget = m._exec_budget if m._use_compact else 0
         self.scat = max(m._exec_budget, _REPLAY_SCAT_MIN)
         self.lagb = m._lag_budget
+        self.mixed = m.rstate is not None
+        self.layout_l = CompactLayout(m.R, m.G, self.scat, self.lagb)
+        # sparse windows are sound only when idle rows are exact no-ops
+        # under the tick fold: the lease countdown and the health heat
+        # decay advance every row every tick, so those keep the dense scan
+        self.lease = m._lease is not None
+        self.health = m._health is not None
         self.pending: list = []
         self.windows = 0
         self.sparse_windows = 0
@@ -1181,9 +1262,46 @@ class _BatchedReplay:
 
     # ------------------------------------------------------------ internals
 
+    def _scan(self, state, rstate, xs):
+        """The window's ticks through the replay scan of this manager's
+        planes: ``(state, rstate, lease, rlease, packs, lp_last, waits)``
+        with the packs copied to the host."""
+        from ..ops.tick import _host, _replay_loop
+
+        m = self.m
+        res = _replay_loop(state, rstate, m._lease, m._rlease, xs, m.P,
+                           self.exec_budget, self.scat, self.lagb,
+                           m._lease_horizon)
+        # the window's one device-to-host copy of the compact buffers
+        return res[:4] + (_host(res[4]),) + res[5:]
+
+    def _overflowed(self, packs, layout_l) -> bool:
+        over = packs[:, 0] > self.scat
+        if self.mixed:
+            over = over | (packs[:, layout_l.total_plain] > self.scat)
+        return bool(over.any())
+
+    def _adopt_lease(self, lp_last, waits, K: int) -> None:
+        """The host mirror holds only the latest pack: adopt the FINAL
+        tick's; the clock advances K in lockstep with the device fold, and
+        the fenced counts accumulate per tick."""
+        from ..ops.tick import LP_HOLDER, _host
+
+        m = self.m
+        if isinstance(lp_last, tuple):
+            lp = np.concatenate([_host(lp_last[0]), _host(lp_last[1])],
+                                axis=1)
+        else:
+            lp = _host(lp_last)
+        m._lease_np = lp.copy()
+        m._lease_clock += K
+        m._lease_gauge.set(int((lp[LP_HOLDER] >= 0).sum()))
+        w = int(_host(waits).sum())
+        if w:
+            m._lease_waits_c.inc(w)
+
     def _run_window(self, chunk) -> None:
         from .columnar import build_tick_slab, coo_window
-        from ..ops.tick import _host, replay_scan_ticks
 
         m = self.m
         K = len(chunk)
@@ -1191,7 +1309,7 @@ class _BatchedReplay:
         M = 8  # pow2 pad width
         while M < slab.max_entries():
             M *= 2
-        e, p, g, rid, stop, alive = coo_window(slab, 0, K, m.G, M)
+        e, p, g, rid, stop, alive = coo_window(slab, 0, K, m.G_total, M)
         xs = {"e": e, "p": p, "g": g, "rid": rid, "stop": stop,
               "alive": alive}
         self.windows += 1
@@ -1206,17 +1324,19 @@ class _BatchedReplay:
             for t in range(K):
                 self._reference_tick(slab, t)
             return
-        st, packs = replay_scan_ticks(
-            m.state, xs, m.P, self.exec_budget, self.scat, self.lagb)
-        packs = _host(packs)  # the window's one device-to-host copy
-        if (packs[:, 0] > self.scat).any():
+        st, rst, ls, rls, packs, lp_last, waits = self._scan(
+            m.state, m.rstate, xs)
+        if self._overflowed(packs, self.layout_l):
             # the tick never writes its input: pre-window state is intact,
             # so the whole window re-runs through the exact unbudgeted body
             self.overflows += 1
             for t in range(K):
                 self._reference_tick(slab, t)
             return
-        m.state = st
+        m.state, m.rstate = st, rst
+        if ls is not None:
+            m._lease, m._rlease = ls, rls
+            self._adopt_lease(lp_last, waits, K)
         for k in range(K):
             self._host_tick(slab, k, packs[k])
 
@@ -1229,12 +1349,19 @@ class _BatchedReplay:
         fraction of the plane; ``GPTPU_REPLAY_SPARSE`` forces it on
         (tests) or off (A/B)."""
         mode = os.environ.get("GPTPU_REPLAY_SPARSE", "auto")
-        if mode in ("0", "off"):
+        if mode in ("0", "off") or self.lease or self.health:
             return None
         m = self.m
-        acts = np.unique(g[g < m.G]).astype(np.int64)
-        sp = _SparsePlan(m, _sparse_rows(acts, m.G))
-        if mode not in ("1", "force") and sp.width * _SPARSE_FACTOR >= m.G:
+        acts = np.unique(g[g < m.G_total]).astype(np.int64)
+        if self.mixed:
+            split = int(np.searchsorted(acts, m.G))
+            rows_l = _sparse_rows(acts[:split], m.G)
+            rows_r = _sparse_rows(acts[split:] - m.G, m.G_reg)
+        else:
+            rows_l, rows_r = _sparse_rows(acts, m.G), None
+        sp = _SparsePlan(m, rows_l, rows_r)
+        if mode not in ("1", "force") and (
+                sp.width * _SPARSE_FACTOR >= m.G_total):
             return None
         return sp
 
@@ -1244,20 +1371,23 @@ class _BatchedReplay:
         caller re-runs the window record-at-a-time)."""
         import torch
 
-        from ..ops.tick import (_host, replay_gather_rows, replay_scan_ticks,
-                                replay_scatter_rows)
+        from ..ops.tick import replay_gather_rows, replay_scatter_rows
 
         m = self.m
         xs = dict(xs, g=sp.inv[xs["g"]])
-        rows = torch.as_tensor(sp.rows, device=m.device)
-        st, packs = replay_scan_ticks(
-            replay_gather_rows(m.state, rows), xs, m.P, self.exec_budget,
-            self.scat, self.lagb)
-        packs = _host(packs)  # the window's one device-to-host copy
-        if (packs[:, 0] > self.scat).any():
+        rows_l = torch.as_tensor(sp.rows_l, device=m.device)
+        rows_r = (torch.as_tensor(sp.rows_r, device=m.device)
+                  if self.mixed else None)
+        st, rst, _, _, packs, _, _ = self._scan(
+            replay_gather_rows(m.state, rows_l),
+            replay_gather_rows(m.rstate, rows_r) if self.mixed else None,
+            xs)
+        if self._overflowed(packs, sp.layout_l):
             return False
         self.sparse_windows += 1
-        m.state = replay_scatter_rows(m.state, st, rows)
+        m.state = replay_scatter_rows(m.state, st, rows_l)
+        if self.mixed:
+            m.rstate = replay_scatter_rows(m.rstate, rst, rows_r)
         for k in range(K):
             self._host_tick(slab, k, packs[k], sp)
         return True
@@ -1277,21 +1407,29 @@ class _BatchedReplay:
         m.tick_num = int(slab.tick_nums[k]) + 1
 
     def _unpack(self, row, sp=None):
-        from ..ops.tick import unpack_compact
+        from ..ops.tick import merge_compact_outbox, unpack_compact
 
         m = self.m
+        wl = m.G if sp is None else sp.wl
+        if self.mixed:
+            tl = (self.layout_l if sp is None else sp.layout_l).total_plain
+            co = merge_compact_outbox(
+                unpack_compact(row[:tl], m.R, wl, self.scat, self.lagb),
+                unpack_compact(row[tl:], m.R, m.G_reg if sp is None
+                               else sp.wr, self.scat, self.lagb), wl)
+        else:
+            co = unpack_compact(row, m.R, wl, self.scat, self.lagb)
         if sp is None:
-            return unpack_compact(row, m.R, m.G, self.scat, self.lagb)
-        # sparse window: unpack at the narrow width, then map the exec and
-        # lag streams' rows back to global rows and expand the intake bits
-        # into the full plane (idle rows never take)
-        co = unpack_compact(row, m.R, sp.width, self.scat, self.lagb)
-        taken = np.zeros((m.R, m.G), np.int32)
-        taken[:, sp.rows] = co.taken_bits
+            return co
+        # sparse window: map the exec and lag streams' rows back to global
+        # composite rows and expand the intake bits into the full row
+        # space (idle rows never take)
+        taken = np.zeros((m.R, m.G_total), np.int32)
+        taken[:, sp.combined] = co.taken_bits
         return co._replace(
             taken_bits=taken,
-            e_row=sp.rows[np.asarray(co.e_row, np.int64)],
-            l_row=sp.rows[np.asarray(co.l_row, np.int64)])
+            e_row=sp.combined[np.asarray(co.e_row, np.int64)],
+            l_row=sp.combined[np.asarray(co.l_row, np.int64)])
 
     def _reference_tick(self, slab, t: int) -> None:
         """Exact record-at-a-time tick body (tails + overflow fallback),
@@ -1319,6 +1457,7 @@ def replay_journals_batched(m, log_dir, start_seq, make_record, new_buffers,
     disp = _BatchedReplay(m, make_record, new_buffers, place, build_inbox,
                           tick_fn, bulk_replay, batch_ticks)
     pay_tab: dict = {}
+    pending_reg = None  # OP_REG stash for the next OP_TICK
     paths = _journal_paths(log_dir, start_seq, progress)
     for path in paths:
         seq = int(os.path.basename(path).split(".")[1])
@@ -1338,7 +1477,10 @@ def replay_journals_batched(m, log_dir, start_seq, make_record, new_buffers,
                     # everything before the bad record still replays
                     disp.flush()
                     break
-            if rec[0] == OP_TICK:
+            if rec[0] == OP_REG:
+                pending_reg = (rec[1], rec[2])
+            elif rec[0] == OP_TICK:
+                rec, pending_reg = _fold_reg(pending_reg, rec), None
                 if rec[1] < m.tick_num:
                     continue  # already inside the snapshot
                 disp.add(rec)
@@ -1354,27 +1496,45 @@ def _restore_snapshot(m, meta, arrs) -> None:
     """Load a decoded snapshot into a fresh manager ``m``."""
     import collections
 
+    import torch
+
+    from ..ops.tick import LeaseState
     from ..paxos.manager import RequestRecord
     from ..paxos.state import PaxosState, state_from_numpy, to_host
 
-    for prefix, what in (("reg_", _REGISTER_SLICE),
-                         ("lease_", "lease-plane snapshot fields (the "
-                                    "lease slice of the port)"),
-                         ("dkv_", _DEVICE_KV_SLICE)):
-        if any(k.startswith(prefix) for k in arrs.files):
-            raise NotImplementedError(what)
-    if meta.get("kv_chunks") is not None or \
+    if any(k.startswith("dkv_") for k in arrs.files) or \
+            meta.get("kv_chunks") is not None or \
             meta.get("kv_watermark") is not None:
         raise NotImplementedError(_DEVICE_KV_SLICE)
     m.state = state_from_numpy([arrs[f] for f in PaxosState._fields],
                                device=m.device)
+    if m.rstate is not None and any(k.startswith("reg_")
+                                    for k in arrs.files):
+        m.rstate = state_from_numpy(
+            [arrs["reg_" + f] for f in PaxosState._fields], device=m.device)
+    if m._lease is not None and any(k.startswith("lease_")
+                                    for k in arrs.files):
+        # both planes' lease columns, the host mirror and the lockstep
+        # clock (== the device clock: both advance once per tick)
+        def lease_of(prefix):
+            return LeaseState(*(torch.as_tensor(np.array(arrs[prefix + f]),
+                                                device=m.device)
+                                for f in LeaseState._fields))
+
+        m._lease = lease_of("lease_")
+        if m._rlease is not None and "rlease_holder" in arrs.files:
+            m._rlease = lease_of("rlease_")
+        if "lease_pack" in arrs.files:
+            m._lease_np = np.array(arrs["lease_pack"])
+        m._lease_clock = int(arrs["lease_clock"])
     # checkpoints are taken pipeline-drained (host == device), so the
     # snapshot's device watermark IS the host-applied one; leaving
     # _host_exec at zero would disable the sweep's passed-branch until
     # every member executes again post-recovery
-    m._host_exec = to_host(m.state.exec_slot).astype(np.int32)
-    m._member_np = to_host(m.state.member)
-    m._n_members_np = to_host(m.state.n_members)
+    m._host_exec = m._dev_exec_np().astype(np.int32)
+    planes = [m.state] + ([m.rstate] if m.rstate is not None else [])
+    m._member_np = np.hstack([to_host(p.member) for p in planes])
+    m._n_members_np = np.hstack([to_host(p.n_members) for p in planes])
     m.tick_num = meta["tick_num"]
     m._next_rid = meta["next_rid"]
     m.rows.restore(meta["rows"], meta.get("free_rows"))
@@ -1432,7 +1592,8 @@ def recover(cfg, n_replicas: int, apps, log_dir: str, native: bool = True,
     ``"batched"`` (default, ``GPTPU_REPLAY_MODE``) or ``"reference"``."""
     import torch
 
-    from ..ops.tick import TickInbox, paxos_tick_packed, unpack_outbox
+    from ..ops.tick import (TickInbox, merge_outbox, paxos_tick_health,
+                            unpack_outbox)
     from ..paxos.manager import PaxosManager, RequestRecord
 
     logger = PaxosLogger(
@@ -1456,8 +1617,9 @@ def recover(cfg, n_replicas: int, apps, log_dir: str, native: bool = True,
                              stop, None, entry)
 
     def new_buffers(m):
-        return (np.zeros((m.R, m.P, m.G), np.int32),
-                np.zeros((m.R, m.P, m.G), bool))
+        # composite row space: register columns ride the same inbox
+        return (np.zeros((m.R, m.P, m.G_total), np.int32),
+                np.zeros((m.R, m.P, m.G_total), bool))
 
     def place(bufs, entry, p, row, rid, stop):
         bufs[0][entry, p, row] = rid
@@ -1472,10 +1634,21 @@ def recover(cfg, n_replicas: int, apps, log_dir: str, native: bool = True,
     def tick_host(state, inbox):
         # replay must evolve state EXACTLY as the live run did, so the
         # exec budget (if the live run used the compact path) applies here
-        # too even though replay consumes the full outbox
+        # too even though replay consumes the full outbox; the lease
+        # columns re-evolve tick for tick (their fold is a pure function
+        # of (state, inbox)); health is observation only and not replayed
         budget = m._exec_budget if m._use_compact else 0
-        state, packed = paxos_tick_packed(state, inbox, -1, budget)
-        return state, unpack_outbox(packed, m.R, m.P, m.W, m.G)
+        (state, m.rstate, m._lease, m._rlease, _, _, pk_l, pk_r, lp_l, lp_r,
+         _, _) = paxos_tick_health(
+            state, m.rstate, m._lease, m._rlease, None, None, inbox, -1,
+            budget, m._lag_budget, m._lease_horizon, False)
+        if lp_l is not None:
+            m._adopt_lease_pack(lp_l if lp_r is None else (lp_l, lp_r))
+        out = unpack_outbox(pk_l, m.R, m.P, m.W, m.G)
+        if pk_r is not None:
+            out = merge_outbox(out, unpack_outbox(pk_r, m.R, m.P, 1,
+                                                  m.G_reg))
+        return state, out
 
     def bulk_replay(m, bufs, bulk_rec):
         rids_b, be_b, bp_b, br_b, stop_b, payloads = bulk_rec

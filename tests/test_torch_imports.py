@@ -22,7 +22,8 @@ def _submodules():
 def test_import_loads_no_jax_and_no_reference_module():
     mods = ["gigapaxos_tpu_torch"] + _submodules()
     for m in ("paxos.manager", "net.transport", "protocoltask.executor",
-              "reconfiguration.active_replica", "node", "client"):
+              "reconfiguration.active_replica", "node", "client",
+              "obs.flight"):
         assert f"gigapaxos_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -287,7 +287,6 @@ def test_bulk_compact_pipelined_with_crash_and_repair(pipeline):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("register_groups", 8), ("read_leases", True), ("group_health", True),
     ("device_app", True), ("mesh_devices", 2), ("fast_reelection", True),
     ("emulate_unreplicated", True),
 ])
@@ -302,18 +301,18 @@ def test_unported_options_raise(option, value):
 
 def test_wal_raises_and_cuda_default_needs_card(monkeypatch, tmp_path):
     """A durable manager still refuses an unported plane (the WAL is
-    ported; register groups are not), and without a card the CUDA
+    ported; the device KV app is not), and without a card the CUDA
     default raises."""
     from gigapaxos_tpu_torch.wal.logger import PaxosLogger
 
     cfg = tcfg.GigapaxosTpuConfig()
     cfg.paxos.max_groups = 8
-    cfg.paxos.register_groups = 8
+    cfg.paxos.device_app = True
     apps = [trep.NoopApp() for _ in range(3)]
-    with pytest.raises(NotImplementedError, match="register"):
+    with pytest.raises(NotImplementedError, match="device-KV"):
         tmgr.PaxosManager(cfg, 3, apps, device="cpu",
                           wal=PaxosLogger(str(tmp_path), native=False))
-    cfg.paxos.register_groups = 0
+    cfg.paxos.device_app = False
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmgr.PaxosManager(cfg, 3, apps)

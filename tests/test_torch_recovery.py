@@ -350,11 +350,9 @@ def test_native_backend_recovery_equals_python(tmp_path):
 
 
 def test_unported_records_raise_naming_their_slice(tmp_path):
-    """Register, device-KV and targeted-create records are refused, never
+    """Device-KV and targeted-create records are refused, never
     skipped."""
     cases = [
-        ((tlog.OP_CREATE, "r0", [0, 1, 2], 0, True), "register"),
-        ((tlog.OP_REG, 0, []), "register"),
         ((tlog.OP_TICK, 0, [], np.ones(R, bool).tobytes(), None,
           (b"", b"", b"", b"")), "device-KV"),
         ((tlog.OP_CREATE_AT, "x", [0, 1, 2], 0, 3, b""), "control-plane"),

@@ -492,10 +492,3 @@ def test_replay_gather_scatter_rows_equal_reference():
     assert ft is ts
     _assert_states(fj, ft)
 
-
-def test_unported_replay_scans_name_their_slice():
-    for fn, word in ((ttick.replay_scan_ticks_lease, "lease"),
-                     (ttick.replay_scan_ticks_mixed, "register"),
-                     (ttick.replay_scan_ticks_mixed_lease, "lease")):
-        with pytest.raises(NotImplementedError, match=word):
-            fn(None, None, 1, 0, 0, 0)
