@@ -36,7 +36,7 @@ the kernels are built for sm_90a).  It
 6. cluster phase: the port's ``InProcessCluster`` with 5 actives and 3
    reconfigurators on loopback ports, 2^20 rows on each plane (``KVApp``,
    3 replicas per name), driven through ``ReconfigurableAppClient``:
-   4,096 names created in batches, one PUT each through batched sends,
+   2,048 names created in batches, one PUT each through batched sends,
    every name read back (256 of them one at a time for latency), 16 names
    reconfigured onto a rotated 3-of-5 set, 16 deleted, the survivors read
    back again and their app states held equal at every member.  Every tick
@@ -50,7 +50,25 @@ the kernels are built for sm_90a).  It
    (local reads), crashes it and recovers it through both replay arms,
    then runs one round with leases off.  Every mixed tick must launch 10
    gathers and 2 matches, and each leg reports the device's idle share
-   over a profiled window.
+   over a profiled window;
+8. device-kv phase: ``device-kv-1M`` runs bench.py's device_kv_1m stage
+   (R=3, W=8, P=4, G=2^20, a PUT registered on the device per fresh
+   request) through ``models.device_kv.fused_compact``, the first ticks
+   held against the CPU, every PUT's response its value, every slot its
+   last PUT; ``device-kv-128k`` runs the device-app ``PaxosManager`` at
+   stack_bench.py --device's shape under ``propose_bulk_kv``;
+   ``baselines-128k`` the unreplicated and lazy baselines with
+   ``DenseCounterApp``; ``device-kv-recover`` a durable device-app manager
+   crashed and recovered, equal to the drained live one.  Each tick of
+   these paths must launch 5 gathers and 1 match;
+9. chain phase: ``chain-1M`` ticks 2^20 chains of 3 with one request each
+   per tick at the head, the first ticks held against the CPU, every
+   request applied once at every replica and committed once at the tail;
+   ``chain-128k`` a ``ChainManager`` at G=2^17 with 8,192 busy chains, its
+   middle replica down for W/2 ticks, and a durable leg recovered with
+   ``recover_chain``; ``chain-cluster`` an
+   ``InProcessCluster(coordinator="chain")`` on 2^17-row planes (256
+   names).  Each chain tick must launch 1 gather and no match.
 
 The kernels phase also holds both kernels against their plain versions at
 the narrow widths sparse replay gives them (A=8 groups, W=4), at the
@@ -58,10 +76,14 @@ the narrow widths sparse replay gives them (A=8 groups, W=4), at the
 durable manager and its dense replay give them, and at the cluster's two
 planes (R=5 and R=3, W=4, P=4, G=2^20), and at the planes phase's shapes
 (the W=1 register planes at G=917,504 and G=2^17, the log planes at W=8,
-G=2^17, P=1 and P=4).
+G=2^17, P=1 and P=4), the chain cluster's reconfigurator plane (R=3,
+W=4, G=2^17), and the chain tick's one gather (three rings over a
+per-replica index) at chain-1M, chain-128k and the chain cluster's active
+plane.
 
-It prints the card, the build, each phase's numbers, one ``{"kernels": ...}``
-JSON line, and as its last line ``{"ok": true, "device": {...}}``.  Any
+It prints the card, the build, each phase's numbers, the run's total
+seconds, one ``{"kernels": ...}`` JSON line, and as its last line
+``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero without that line.  With no CUDA card, or
 without the package beside it, it exits non-zero at once.
 """
@@ -300,16 +322,21 @@ def edge_cases(torch, pg, dev):
     return n
 
 
-def path_launches(pg, path: str, n_ticks: int, planes: int = 1) -> dict:
+def launches_now(pg, path: str, want: dict) -> dict:
     """Read the launch counts of one main-path run (set to 0 just before
-    it): every tick of every state plane launches 5 gathers (one per set of
-    arrays that share an index) and 1 match; a mixed tick has two planes."""
+    it) and hold them to ``want``."""
     got = dict(pg.launches)
-    check(got == {"gather_planes": 5 * planes * n_ticks,
-                  "match_planes": planes * n_ticks},
-          f"{path} phase: launches over {n_ticks} ticks of {planes} "
-          f"plane(s): {got}")
+    check(got == want, f"{path}: launches {got}, expected {want}")
     return got
+
+
+def path_launches(pg, path: str, n_ticks: int, planes: int = 1) -> dict:
+    """The launch check of a Paxos path: every tick of every state plane
+    launches 5 gathers (one per set of arrays that share an index) and 1
+    match; a mixed tick has two planes."""
+    return launches_now(pg, f"{path} phase, {n_ticks} ticks of {planes} "
+                        "plane(s)", {"gather_planes": 5 * planes * n_ticks,
+                                     "match_planes": planes * n_ticks})
 
 
 #: (R, W, G, P, label prefix) of the shapes the other paths give the
@@ -324,7 +351,34 @@ PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
                (3, 8, 1 << 17, 1, "mixed log W=8 P=1: "),
                (3, 1, 917_504, 1, "mixed reg W=1 P=1: "),
                (3, 8, 1 << 17, 4, "reads log 128k P=4: "),
-               (3, 1, 1 << 17, 4, "reads reg W=1 128k P=4: "))
+               (3, 1, 1 << 17, 4, "reads reg W=1 128k P=4: "),
+               (3, 4, 1 << 17, 4, "chain cluster RC R=3 W=4 128k: "))
+
+#: (R, W, G, label prefix) of the chain tick's one gather launch: its three
+#: rings over the per-replica window index, at chain-1M, chain-128k and the
+#: chain cluster's active plane (5 actives, the default W=4)
+CHAIN_SHAPES = ((3, 8, 1 << 20, "chain 1M: "),
+                (3, 8, 1 << 17, "chain 128k: "),
+                (5, 4, 1 << 17, "chain cluster AR R=5 W=4: "))
+
+
+def chain_case(torch, dev, R, W, G, prefix):
+    """The chain tick's gather, shaped and made as the tick makes it:
+    c_req int32, c_slot int32 and c_stop bool ``[R, W, G]`` over a
+    per-replica rotation ``(applied + j) & (W-1)``."""
+    gen = torch.Generator(device="cpu").manual_seed(4321 + G + W)
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    applied = ints((R, 1, G), 0, 2**30)
+    jw = torch.arange(W, dtype=torch.int32, device=dev)[None, :, None]
+    i_j = torch.bitwise_and(applied + jw, W - 1)
+    arrs = [ints((R, W, G), 0, 2**31 - 1), ints((R, W, G), -1, 2**30),
+            (torch.rand((R, W, G), generator=gen) < 0.01).to(dev)]
+    return Case("gather_planes", f"{prefix}C chain rings 3x[{R},{W},G] "
+                "per-lead", arrs, i_j)
 
 
 def kernels_phase(torch, pg, dev, R, W, P, G, bw):
@@ -335,6 +389,8 @@ def kernels_phase(torch, pg, dev, R, W, P, G, bw):
         for c in kernel_cases(torch, dev, r, w, p, g):
             c.label, c.tick_set = prefix + c.label, None
             cases.append(c)
+    cases += [chain_case(torch, dev, r, w, g, prefix)
+              for r, w, g, prefix in CHAIN_SHAPES]
     for c in cases:
         what = f"{c.name} {c.label}"
         got = c.fused(pg)
@@ -995,34 +1051,56 @@ def plane_tick_ms(torch, dev, m, n):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             out.append((time.perf_counter() - t0) * 1e3)
-        m.drain_pipeline()
+        _drain_pipeline(m)
     return statistics.median(out)
 
 
+def _drain_pipeline(m):
+    """Finish a pipelined manager's pending tick (a chain manager has no
+    pipeline)."""
+    drain = getattr(m, "drain_pipeline", None)
+    if drain is not None:
+        drain()
+
+
 def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
-                  put_batch=512, serial=256, n_reconf=16, n_delete=16):
+                  put_batch=512, serial=256, n_reconf=16, n_delete=16,
+                  coordinator="paxos"):
     """The port's ``InProcessCluster`` driven through its client: create
     ``n_names`` names, PUT one value each, read every one back (all through
     batches, ``serial`` of them one at a time for latency), reconfigure
     ``n_reconf`` onto a rotated 3-of-5 active set, delete ``n_delete``, read
-    the survivors back again and hold every member's app state equal."""
+    the survivors back again and hold every member's app state equal.
+    ``coordinator="chain"`` puts the names on chains (the active plane is
+    a ``ChainManager``, whose tick launches one gather and no match).  A
+    chain manager has no bulk admission (neither package's has), so its
+    PUTs and reads go one request at a time."""
     from gigapaxos_tpu_torch.client import ClientError, ReconfigurableAppClient
     from gigapaxos_tpu_torch.models.replicable import KVApp
     from gigapaxos_tpu_torch.node import InProcessCluster
 
     names = [f"svc{i}" for i in range(n_names)]
     value = {n: f"{n}-v1".encode() for n in names}
-    out = {"G": G, "actives": 5, "reconfigurators": 3, "names": n_names}
+    batched = coordinator != "chain"
+
+    def send(client, items):
+        if batched:
+            return batch_round(client, items)
+        return [client.request(n, body, timeout=120) for n, body in items]
+
+    out = {"G": G, "actives": 5, "reconfigurators": 3, "names": n_names,
+           "coordinator": coordinator}
     pg.reset_launches()
     t_start = time.perf_counter()
-    cl = InProcessCluster(cluster_cfg(G), KVApp, device=dev)
+    cl = InProcessCluster(cluster_cfg(G), KVApp, coordinator=coordinator,
+                          device=dev)
     client = ReconfigurableAppClient(cl.cfg.nodes)
     try:
         out["start_s"] = time.perf_counter() - t_start
         for m in (cl.manager, cl.rc_manager):
             for f, t in zip(m.state._fields, m.state):
                 check(t.device.type == dev.type,
-                      f"state.{f} of plane {m._ov_node} is on {t.device}")
+                      f"state.{f} of a plane is on {t.device}")
         t0 = time.perf_counter()
         for k in range(0, n_names, create_batch):
             resp = client.create_batch(names[k:k + create_batch],
@@ -1035,8 +1113,7 @@ def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
         refused = []
         for k in range(0, n_names, put_batch):
             chunk = names[k:k + put_batch]
-            got = batch_round(client,
-                              [(n, b"PUT k " + value[n]) for n in chunk])
+            got = send(client, [(n, b"PUT k " + value[n]) for n in chunk])
             refused += [n for n, r in zip(chunk, got) if r != b"OK"]
         out["put_req_per_s"] = n_names / (time.perf_counter() - t0)
         out["put_refused_in_batches"] = len(refused)
@@ -1047,7 +1124,7 @@ def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
         def read_back(which, what):
             for k in range(0, len(which), put_batch):
                 chunk = which[k:k + put_batch]
-                got = batch_round(client, [(n, b"GET k") for n in chunk])
+                got = send(client, [(n, b"GET k") for n in chunk])
                 for n, r in zip(chunk, got):
                     check(r == value[n], f"{what}: GET {n} gave {r!r}")
 
@@ -1098,7 +1175,7 @@ def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
         deadline = time.monotonic() + 60
         while True:
             with cl.manager.lock:
-                cl.manager.drain_pipeline()
+                _drain_pipeline(cl.manager)
                 moved, differ = 0, []
                 for n in live:
                     rec = rdb.get(n)
@@ -1137,7 +1214,13 @@ def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
     rc_dev = ticks["rc"] * out["rc_tick_ms_alone"]
     out["rc_share_of_tick_time"] = rc_dev / (ar_dev + rc_dev)
     out["launches"] = None
-    if dev.type == "cuda":  # the plain versions run on the CPU
+    if dev.type == "cuda" and coordinator == "chain":
+        # a chain tick launches one gather; the RC plane's Paxos tick 5 + 1
+        out["launches"] = launches_now(
+            pg, "chain cluster", {"gather_planes": ticks["ar"]
+                                  + 5 * ticks["rc"],
+                                  "match_planes": ticks["rc"]})
+    elif dev.type == "cuda":  # the plain versions run on the CPU
         out["launches"] = path_launches(pg, "cluster",
                                         ticks["ar"] + ticks["rc"])
     return out
@@ -1585,6 +1668,604 @@ def planes_phase(torch, pg, dev):
     return mixed, reads
 
 
+# --------------------------------------------------------- device-kv phase
+
+def device_kv_1m_leg(torch, pg, dev, R, W, P, G, warm=3, timed=30,
+                     cpu_ticks=3, slots=8):
+    """``device-kv-1M``: bench.py's device_kv_1m stage (``bench.py:182-200``)
+    through the port's ``fused_compact``: every tick registers, on the
+    device, a PUT ``key=(g & 7)+1, val=rid`` for each of its G fresh rids
+    (one per group at entry replica ``g % R``), then ticks, executes the
+    store and compacts (exec budget R*G+4096) in one call.  Closed loop:
+    each tick's buffer is on the host before the next starts.  The first
+    ``cpu_ticks`` ticks are held against the same ticks on the CPU
+    (``torch.equal`` on state, store, table and buffer); every executed
+    stream is checked, every PUT's response is its value, no descriptor
+    misses, and at the end each (replica, group)'s slot holds the rid of
+    the last PUT it executed."""
+    from gigapaxos_tpu_torch.models import device_kv as dk
+    from gigapaxos_tpu_torch.ops import tick as pt
+    from gigapaxos_tpu_torch.paxos import state as st
+
+    E, LB = R * G + 4096, 1024
+    L = pt.CompactLayout(R, G, E, LB)
+    table = 1 << max(16, (4 * G - 1).bit_length())
+
+    def fresh(device):
+        s = st.create_groups(st.init_state(R, G, W, device=device),
+                             np.arange(G), np.ones((G, R), bool))
+        return s, dk.init_kv(R, G, slots, table, device=device)
+
+    state, kv = fresh(dev)
+    cpu = list(fresh("cpu")) if cpu_ticks else None
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    g = torch.arange(G, dtype=torch.int32, device=dev)
+    keys = torch.bitwise_and(g, slots - 1) + 1
+    ops = torch.full((G,), dk.OP_PUT, dtype=torch.int32, device=dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    n_rids = (warm + timed) * G
+    taken = np.zeros(n_rids, bool)
+    stream = StreamCheck(R, G, n_rids)
+    entry = np.arange(G) % R
+    lat, copy, decided, tick, idle = [], [], 0, 0, 0
+    pg.reset_launches()
+    while True:
+        loading = tick < warm + timed
+        base = 1 + tick * G
+        if tick == warm:
+            sync()
+        t0 = time.perf_counter()
+        inbox = load_inbox(torch, pt, R, P, G, base, dev, empty=not loading)
+        reg = ((base + g, ops, keys, base + g) if loading
+               else (none, none, none, none))
+        state, kv, flat = dk.fused_compact(state, kv, inbox, *reg, -1, E, LB)
+        sync()
+        t1 = time.perf_counter()
+        host = flat.cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        copy.append(time.perf_counter() - t1)
+        co = pt.unpack_compact(host, R, G, E, LB)
+        e_resp, e_miss = L.kv_extras(host)
+        n = co.n_exec
+        check(not e_miss[:n].any(), f"tick {tick}: descriptor misses")
+        real = co.e_rid[:n] != 0
+        check(np.array_equal(e_resp[:n][real], co.e_rid[:n][real]),
+              f"tick {tick}: a PUT's response is not its value")
+        if warm <= tick < warm + timed:
+            decided += co.decided_total
+        if loading:
+            taken[tick * G:(tick + 1) * G] = \
+                (co.taken_bits[entry, np.arange(G)] & 1).astype(bool)
+        stream.update(co.e_rid, co.e_rep, co.e_row, co.e_slot)
+        if tick < cpu_ticks:
+            cpu[0], cpu[1], cflat = dk.fused_compact(
+                cpu[0], cpu[1], pt.TickInbox(*(t.cpu() for t in inbox)),
+                *(t.cpu() for t in reg), -1, E, LB)
+            check(np.array_equal(cflat.numpy(), host),
+                  f"device-kv tick {tick}: buffer differs from the CPU run")
+            _same_planes(torch, [state, kv], cpu,
+                         f"device-kv tick {tick} vs the CPU run")
+            if tick == cpu_ticks - 1:
+                cpu = None
+        tick += 1
+        if not loading:
+            idle = idle + 1 if co.n_exec == 0 and co.decided_total == 0 else 0
+            if idle >= 2:
+                break
+            check(tick < warm + timed + 8 * W, "drain did not finish")
+    launches = None
+    if dev.type == "cuda":  # the plain versions run on the CPU
+        launches = path_launches(pg, "device-kv-1M", tick)
+    stream.finish(taken)
+    # each (replica, group)'s slot holds its last executed PUT's rid
+    last = stream.last_rid.reshape(R, G)
+    slot = (np.arange(G) & (slots - 1)) + 1 & (slots - 1)
+    kh = kv.key.cpu().numpy()
+    vh = kv.val.cpu().numpy()
+    rr, gg = np.meshgrid(np.arange(R), np.arange(G), indexing="ij")
+    check(np.array_equal(vh[rr, gg, slot[None, :]], last),
+          "a slot does not hold its last PUT's rid")
+    want_key = np.where(last > 0, (np.arange(G) & (slots - 1)) + 1, 0)
+    check(np.array_equal(kh[rr, gg, slot[None, :]], want_key),
+          "a slot does not hold its PUT's key")
+    check(int((kh != 0).sum()) == int((last > 0).sum()),
+          "a key was written outside its slot")
+    timed_lat = np.array(lat[warm:warm + timed]) * 1e3
+    t_phase = timed_lat.sum() / 1e3
+    return {
+        "R": R, "W": W, "P": P, "G": G, "slots": slots, "table": table,
+        "exec_budget": E, "ticks_timed": timed, "ticks_total": tick,
+        "ms_per_tick": t_phase / timed * 1e3,
+        "dec_per_s": decided / t_phase,
+        "tick_latency_p50_ms": float(np.percentile(timed_lat, 50)),
+        "tick_latency_p99_ms": float(np.percentile(timed_lat, 99)),
+        "copy_ms_per_tick": float(np.mean(copy[warm:warm + timed])) * 1e3,
+        "buffer_mb": host.nbytes / 1e6,
+        "taken": int(taken.sum()), "offered": n_rids,
+        "kv_store_mb": 2 * kv.key.numel() * 4 / 1e6,
+        "table_mb": 4 * table * 4 / 1e6, "launches": launches,
+    }
+
+
+def kv_cfg(R, W, G):
+    """stack_bench.py --device: manager-128k's shape with the device app."""
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+
+    cfg = stack_cfg(GigapaxosTpuConfig(), R, W, G)
+    cfg.paxos.device_app = True
+    return cfg
+
+
+class KVLoad:
+    """stack_bench.py --device's load: one PUT per group per tick, key
+    ``g % (slots-1) + 1``, value ``1 + t*G + g``; every ``sample``-th group
+    carries a completion callback that records its response."""
+
+    def __init__(self, m, G, sample=16):
+        self.m, self.G = m, G
+        self.rows = np.arange(G, dtype=np.int64)
+        self.keys = (np.arange(G) % (m.cfg.paxos.kv_slots - 1) + 1).astype(
+            np.int32)
+        self.ops = np.ones(G, np.int32)  # OP_PUT
+        self.sample = sample
+        self.acked = {}  # rid -> (group, value, response)
+        self.admitted = 0
+        self.last_val = np.zeros(G, np.int64)  # the last admitted value
+
+    def propose(self, t):
+        vals = (1 + t * self.G + np.arange(self.G)).astype(np.int32)
+        cbs = [None] * self.G
+        for gi in range(0, self.G, self.sample):
+            cbs[gi] = (lambda rid, resp, gi=gi, v=int(vals[gi]):
+                       self.acked.__setitem__(rid, (gi, v, resp)))
+        rids = self.m.propose_bulk_kv(self.rows, self.ops, self.keys, vals,
+                                      callbacks=cbs)
+        ok = rids >= 0
+        self.admitted += int(ok.sum())
+        self.last_val[ok] = vals[ok]
+        return rids
+
+    def check_acks(self, what):
+        import struct
+
+        for rid, (gi, v, resp) in self.acked.items():
+            check(resp == struct.pack("<i", v),
+                  f"{what}: rid {rid} acked {resp!r}, its value is {v}")
+        check(len(self.acked) > 0, f"{what}: nothing was acked")
+
+
+def _drain_manager(m, what, limit=64):
+    n = 0
+    while True:
+        m.tick()
+        m.drain_pipeline()
+        n += 1
+        if not m.bulk_stats()["queued"] and not m.bulk.n_live:
+            return n
+        check(n < limit, f"{what}: drain did not finish: {m.bulk_stats()}")
+
+
+def device_kv_128k_leg(torch, pg, dev, R, W, G, ticks):
+    """``device-kv-128k``: manager-128k's ``PaxosManager`` with
+    ``device_app=True`` (stack_bench.py --device) under ``propose_bulk_kv``
+    with one PUT per group per tick."""
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+
+    m = PaxosManager(kv_cfg(R, W, G), R, [None] * R, spill_ns="smoke-kv",
+                     device=dev)
+    check(m.create_paxos_instances([f"g{i}" for i in range(G)],
+                                   list(range(R))) == G, "create failed")
+    check(all(m.rows.row(f"g{i}") == i for i in (0, G - 1)),
+          "rows not in creation order")
+    load = KVLoad(m, G)
+    pg.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        load.propose(t)
+        m.tick()
+    m.drain_pipeline()
+    elapsed = time.perf_counter() - t0
+    decided = m.stats["decisions"]
+    phases = host_phases("smoke-kv")
+    drain = _drain_manager(m, "device-kv-128k")
+    launches = None
+    if dev.type == "cuda":
+        launches = path_launches(pg, "device-kv-128k", m.tick_num)
+    load.check_acks("device-kv-128k")
+    check(m.bulk_stats()["done"] == load.admitted == ticks * G,
+          f"device-kv-128k: {m.bulk_stats()} of {load.admitted} admitted")
+    check(m.stats["kv_misses"] == 0, "device-kv-128k: descriptor misses")
+    slot = load.keys & (m.cfg.paxos.kv_slots - 1)
+    vh = m.kv.val.cpu().numpy()
+    for r in range(R):
+        check(np.array_equal(vh[r, np.arange(G), slot], load.last_val),
+              f"device-kv-128k: replica {r} does not hold the last PUTs")
+    return {"G": G, "R": R, "W": W, "ticks": ticks, "drain_ticks": drain,
+            "admitted": load.admitted, "acked": len(load.acked),
+            "dec_per_s": decided / elapsed,
+            "ms_per_tick": elapsed / ticks * 1e3,
+            "host_ms_per_tick_by_phase": phases, "launches": launches}
+
+
+def baseline_leg(torch, pg, dev, R, W, G, ticks, flag, manager_dps=None):
+    """``baselines-128k``: manager-128k with ``DenseCounterApp`` under one
+    of the two measurement baselines (stack_bench.py --baseline):
+    ``emulate_unreplicated`` executes each request once, at its entry
+    replica, at admission (no tick runs); ``lazy_propagation`` executes at
+    the entry at admission and still replicates through the ticks.  The
+    closed-loop run of the same requests gives every replica one
+    execution of delta 1 per request (manager phase); unreplicated replicas
+    together, and each lazy replica alone, must hold exactly that."""
+    import struct
+
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.dense_apps import DenseCounterApp
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+
+    cfg = stack_cfg(GigapaxosTpuConfig(), R, W, G)
+    setattr(cfg.paxos, flag, True)
+    apps = [DenseCounterApp(G) for _ in range(R)]
+    m = PaxosManager(cfg, R, apps, spill_ns=f"smoke-{flag}", device=dev)
+    for a in apps:
+        a.row_of = m.rows.row
+    check(m.create_paxos_instances([f"g{i}" for i in range(G)],
+                                   list(range(R))) == G, "create failed")
+    rows = np.arange(G, dtype=np.int64)
+    payload = struct.pack("<q", 1)
+    acks = np.zeros(G, np.int64)
+
+    def sink(offsets, responses):
+        np.add.at(acks, offsets, 1)
+
+    replicated = flag != "emulate_unreplicated"
+    pg.reset_launches()
+    t0 = time.perf_counter()
+    admitted = 0
+    for t in range(ticks):
+        rids = m.propose_bulk(rows, payload, batch_sink=sink)
+        check(bool((rids >= 0).all()), f"{flag}: admission refused")
+        admitted += len(rids)
+        if replicated:
+            m.tick()
+    if replicated:
+        m.drain_pipeline()
+    elapsed = time.perf_counter() - t0
+    decided = m.stats["decisions"]
+    drain = _drain_manager(m, flag) if replicated else 0
+    launches = None
+    if dev.type == "cuda":
+        launches = (path_launches(pg, flag, m.tick_num) if replicated else
+                    launches_now(pg, flag, {"gather_planes": 0,
+                                            "match_planes": 0}))
+    expect = np.full(G, ticks, np.int64)  # the closed-loop replica state
+    check(np.array_equal(acks, expect), f"{flag}: acks per group")
+    if replicated:
+        for r, a in enumerate(apps):
+            check(np.array_equal(a.acc, expect)
+                  and np.array_equal(a.count, expect),
+                  f"{flag}: replica {r} differs from the closed-loop state")
+    else:
+        check(np.array_equal(sum(a.acc for a in apps), expect)
+              and np.array_equal(sum(a.count for a in apps), expect),
+              f"{flag}: the replicas together differ from one closed-loop "
+              "replica")
+    return {"flag": flag, "G": G, "ticks": ticks, "drain_ticks": drain,
+            "admitted": admitted, "dec_per_s": decided / elapsed,
+            "ms_per_round": elapsed / ticks * 1e3,
+            "manager_128k_dec_per_s": manager_dps, "launches": launches}
+
+
+def device_kv_recover_leg(torch, pg, dev, R, W, G, ticks, work):
+    """``device-kv-recover``: device-kv-128k made durable (native journal,
+    an fsync every tick, one checkpoint mid-run), crashed with no drain and
+    recovered on the card (a device-app journal replays record at a
+    time).  The recovered state, store and table equal the drained live
+    manager's; every acked PUT reads back at every replica."""
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+    from gigapaxos_tpu_torch.wal.logger import PaxosLogger, recover
+
+    cfg = kv_cfg(R, W, G)
+    live_dir = os.path.join(work, "live")
+    wal = PaxosLogger(live_dir, sync_every_ticks=1,
+                      checkpoint_every_ticks=ticks // 2 + 1, native=True)
+    m = PaxosManager(cfg, R, [None] * R, wal=wal, spill_ns="smoke-kv-wal",
+                     device=dev)
+    check(wal.backend == "native", "the WAL did not open the native journal")
+    check(m.create_paxos_instances([f"g{i}" for i in range(G)],
+                                   list(range(R))) == G, "create failed")
+    load = KVLoad(m, G)
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        load.propose(t)
+        m.tick()
+    live_s = time.perf_counter() - t0
+    snaps = glob.glob(os.path.join(live_dir, "snapshot.*.bin"))
+    check(len(snaps) == 1, f"expected one checkpoint, found {len(snaps)}")
+    snap_tick = int(os.path.basename(snaps[0]).split(".")[1])
+    jbytes = journal_bytes(live_dir)
+    m.wal.close()  # crash: no drain, the pending outbox is lost
+    acked = dict(load.acked)
+    pg.reset_launches()
+    t0 = time.perf_counter()
+    mr = recover(cfg, R, [None] * R, live_dir, native=True, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    launches = None
+    if dev.type == "cuda":
+        launches = path_launches(pg, "device-kv replay",
+                                 mr.tick_num - snap_tick)
+    m.drain_pipeline()
+    _same_planes(torch, [m.state, m.kv], [mr.state, mr.kv],
+                 "device-kv: drained live vs recovered")
+    check(mr.tick_num == m.tick_num and mr._kv_watermark == m._kv_watermark,
+          "device-kv: recovered tick or watermark differs")
+    backend = mr.wal.backend
+    check(backend == "native", "recovery did not open the native journal")
+    slot = load.keys & (cfg.paxos.kv_slots - 1)
+    vh = mr.kv.val.cpu().numpy()
+    kh = mr.kv.key.cpu().numpy()
+    for rid, (gi, v, resp) in acked.items():
+        for r in range(R):
+            # the group's one key takes rising values: a later PUT may
+            # have replaced an acked one, never an earlier one
+            check(kh[r, gi, slot[gi]] == load.keys[gi]
+                  and vh[r, gi, slot[gi]] >= v,
+                  f"device-kv: acked PUT {rid} lost at replica {r}")
+    check(len(acked) > 0, "device-kv: nothing was acked before the crash")
+    mr.wal.close()
+    return {"G": G, "R": R, "ticks": ticks, "backend": backend,
+            "admitted": load.admitted, "acked_read_back": len(acked),
+            "snapshot_tick": snap_tick,
+            "replayed_ticks": mr.tick_num - snap_tick,
+            "journal_mb_at_crash": jbytes / 1e6,
+            "live_ms_per_tick": live_s / ticks * 1e3,
+            "replay_s": replay_s, "launches": launches}
+
+
+def device_kv_phase(torch, pg, dev, work, G_1m=1 << 20, G_128k=1 << 17,
+                    ticks_1m=30, ticks_128k=30, manager_dps=None):
+    """The four device-kv legs; the durable one in ``work``."""
+    R, W, P = 3, 8, 4
+    out = {"device-kv-1M": device_kv_1m_leg(
+        torch, pg, dev, R, W, P, G_1m, timed=ticks_1m,
+        cpu_ticks=3 if ticks_1m >= 3 else ticks_1m)}
+    out["device-kv-128k"] = device_kv_128k_leg(torch, pg, dev, R, W, G_128k,
+                                               ticks_128k)
+    out["baselines-128k"] = {
+        arm: baseline_leg(torch, pg, dev, R, W, G_128k, ticks_128k, flag,
+                          manager_dps)
+        for arm, flag in (("unreplicated", "emulate_unreplicated"),
+                          ("lazy", "lazy_propagation"))}
+    out["device-kv-recover"] = device_kv_recover_leg(
+        torch, pg, dev, R, W, G_128k, max(4, ticks_128k * 2 // 3),
+        os.path.join(work, "kv-wal"))
+    return out
+
+
+# ------------------------------------------------------------- chain phase
+
+def chain_1m_leg(torch, pg, dev, R, W, P, G, warm=3, timed=30, cpu_ticks=3):
+    """``chain-1M``: ``chain_tick_packed`` over G chains of R members with
+    one fresh request per chain per tick at its head (inbox row 0, rid
+    ``base + g``), closed loop: each tick's packed outbox (O(R*W*G)) is on
+    the host before the next starts.  The first ``cpu_ticks`` ticks are
+    held against the CPU; at the end every taken request was applied once
+    at every replica (counts and rid sums) and committed once at the
+    tail; each tick launches one gather and no match."""
+    from gigapaxos_tpu_torch.chain import state as cs
+    from gigapaxos_tpu_torch.chain import tick as ct
+
+    def fresh(device):
+        return cs.create_groups(cs.init_state(R, G, W, device=device),
+                                np.arange(G), np.ones((G, R), bool))
+
+    state = fresh(dev)
+    cpu = fresh("cpu") if cpu_ticks else None
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    g = torch.arange(G, dtype=torch.int32, device=dev)
+    stop = torch.zeros((P, G), dtype=torch.bool, device=dev)
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    lat, copy, commits, tick, idle = [], [], 0, 0, 0
+    taken_n = taken_sum = committed = 0
+    exec_n = np.zeros(R, np.int64)
+    exec_sum = np.zeros(R, np.int64)
+    pg.reset_launches()
+    while True:
+        loading = tick < warm + timed
+        base = 1 + tick * G
+        if tick == warm:
+            sync()
+        t0 = time.perf_counter()
+        req = torch.zeros((P, G), dtype=torch.int32, device=dev)
+        if loading:
+            req[0] = base + g
+        inbox = ct.ChainInbox(req, stop, alive)
+        state, packed = ct.chain_tick_packed(state, inbox)
+        sync()
+        t1 = time.perf_counter()
+        host = packed.cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        copy.append(time.perf_counter() - t1)
+        out = ct.unpack_chain_outbox(host, R, P, W, G)
+        if warm <= tick < warm + timed:
+            commits += int(out.committed_now.sum())
+        committed += int(out.committed_now.sum())
+        if loading:
+            tk = out.intake_taken[0]
+            taken_n += int(tk.sum())
+            taken_sum += int((base + np.arange(G, dtype=np.int64))[tk].sum())
+        exec_n += out.exec_count.sum(axis=1)
+        exec_sum += out.exec_req.sum(axis=(1, 2), dtype=np.int64)
+        if tick < cpu_ticks:
+            cpu, cflat = ct.chain_tick_packed(
+                cpu, ct.ChainInbox(*(t.cpu() for t in inbox)))
+            check(np.array_equal(cflat.numpy(), host),
+                  f"chain tick {tick}: outbox differs from the CPU run")
+            _same_planes(torch, [state], [cpu],
+                         f"chain tick {tick} vs the CPU run")
+            if tick == cpu_ticks - 1:
+                cpu = None
+        tick += 1
+        if not loading:
+            idle = idle + 1 if not out.exec_count.any() else 0
+            if idle >= 2:
+                break
+            check(tick < warm + timed + 8 * W, "chain drain did not finish")
+    launches = None
+    if dev.type == "cuda":
+        launches = launches_now(pg, "chain-1M",
+                                {"gather_planes": tick, "match_planes": 0})
+    check(committed == taken_n > 0, f"chain-1M: {committed} committed of "
+                                    f"{taken_n} taken")
+    check(bool(np.all(exec_n == taken_n)) and bool(np.all(
+        exec_sum == taken_sum)), "chain-1M: a replica did not apply every "
+                                 "taken request once")
+    timed_lat = np.array(lat[warm:warm + timed]) * 1e3
+    t_phase = timed_lat.sum() / 1e3
+    return {"R": R, "W": W, "P": P, "G": G, "ticks_timed": timed,
+            "ticks_total": tick, "ms_per_tick": t_phase / timed * 1e3,
+            "commits": commits, "commits_per_s": commits / t_phase,
+            "tick_latency_p50_ms": float(np.percentile(timed_lat, 50)),
+            "tick_latency_p99_ms": float(np.percentile(timed_lat, 99)),
+            "copy_ms_per_tick": float(np.mean(copy[warm:warm + timed])) * 1e3,
+            "taken": taken_n, "state_mb": sum(
+                t.numel() * t.element_size() for t in state) / 1e6,
+            "outbox_mb": host.nbytes / 1e6, "launches": launches}
+
+
+def _chain_manager(dev, G, W, P, wal=None):
+    from gigapaxos_tpu_torch.chain import ChainManager
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+
+    cfg = GigapaxosTpuConfig()
+    cfg.paxos.max_groups = G
+    cfg.paxos.window = W
+    cfg.paxos.proposals_per_tick = P
+    return cfg, ChainManager(cfg, 3, [KVApp() for _ in range(3)], wal=wal,
+                             device=dev)
+
+
+def _chain_load(m, names, ticks, acked, outage=None):
+    """One PUT ``k<t> <t>`` per busy chain per tick, acks recorded with
+    whether replica 1 was down; replica 1 is down for the ticks in
+    ``outage`` (shorter than the window: a dead member freezes the
+    chain's window room); then ticks until every request responded."""
+    for t in range(ticks):
+        if outage is not None:
+            m.set_alive(1, t not in outage)
+        for n in names:
+            m.propose(n, f"PUT k{t} {t}".encode(),
+                      lambda rid, resp, n=n, t=t: acked.append(
+                          (n, t, resp, not m.alive[1])))
+        m.tick()
+    extra = 0
+    while any(not r.responded for r in m.outstanding.values()) \
+            or m.pending_count():
+        m.tick()
+        extra += 1
+        check(extra < 64, "chain drain did not finish")
+    return extra
+
+
+def chain_128k_leg(torch, pg, dev, G, W, P, ticks, busy, work,
+                   durable_busy=512, durable_ticks=16):
+    """``chain-128k``: ``ChainManager`` over a G-row plane with ``KVApp``;
+    ``busy`` chains take one PUT each per tick; the middle replica is
+    killed halfway for W/2 ticks, the chains relink around it (writes keep
+    committing at the tail), it rejoins and catches up from its live
+    predecessor, and every acked write reads back at every member.  Then a durable leg (``ChainLogger``,
+    native journal, one checkpoint) is crashed and recovered with
+    ``recover_chain``: the recovered state and apps equal the live ones."""
+    from gigapaxos_tpu_torch.chain.state import ChainState
+    from gigapaxos_tpu_torch.wal.chain_logger import (ChainLogger,
+                                                      recover_chain)
+
+    cfg, m = _chain_manager(dev, G, W, P)
+    names = [f"c{i}" for i in range(busy)]
+    for n in names:
+        check(m.create_paxos_instance(n, [0, 1, 2]), "chain create failed")
+    acked = []
+    pg.reset_launches()
+    t0 = time.perf_counter()
+    outage = range(ticks // 2, ticks // 2 + W // 2)
+    extra = _chain_load(m, names, ticks, acked, outage=outage)
+    elapsed = time.perf_counter() - t0
+    launches = None
+    if dev.type == "cuda":
+        launches = launches_now(pg, "chain-128k",
+                                {"gather_planes": m.tick_num,
+                                 "match_planes": 0})
+    check(len(acked) == busy * ticks, f"chain-128k: {len(acked)} acked of "
+                                      f"{busy * ticks}")
+    dead = 0
+    for n, t, resp, down in acked:
+        check(resp == b"OK", f"chain-128k: PUT on {n} answered {resp!r}")
+        for r in range(3):
+            check(m.apps[r].db[n][f"k{t}"] == str(t),
+                  f"chain-128k: acked write {n} k{t} lost at replica {r}")
+        dead += down
+    check(dead > 0, "chain-128k: nothing committed while replica 1 was "
+                    "down")
+    res = {"G": G, "W": W, "P": P, "busy_chains": busy, "ticks": ticks,
+           "drain_ticks": extra, "acked": len(acked),
+           "acked_while_member_down": dead,
+           "ms_per_tick": elapsed / m.tick_num * 1e3,
+           "commits_per_s": m.stats["decisions"] / elapsed,
+           "launches": launches}
+
+    live_dir = os.path.join(work, "chain-wal")
+    wal = ChainLogger(live_dir, sync_every_ticks=1,
+                      checkpoint_every_ticks=durable_ticks // 2 + 1,
+                      native=True)
+    cfg, d = _chain_manager(dev, G, W, P, wal=wal)
+    check(wal.backend == "native", "the chain WAL did not open the native "
+                                   "journal")
+    dnames = names[:durable_busy]
+    for n in dnames:
+        check(d.create_paxos_instance(n, [0, 1, 2]), "chain create failed")
+    dacked = []
+    t0 = time.perf_counter()
+    _chain_load(d, dnames, durable_ticks, dacked)
+    durable_s = time.perf_counter() - t0
+    check(len(glob.glob(os.path.join(live_dir, "snapshot.*.bin"))) >= 1,
+          "chain: expected a checkpoint")
+    d.wal.close()  # crash
+    t0 = time.perf_counter()
+    rec = recover_chain(cfg, 3, [type(a)() for a in d.apps], live_dir,
+                        native=True, device=dev)
+    replay_s = time.perf_counter() - t0
+    for name, x, y in zip(ChainState._fields, d.state, rec.state):
+        check(torch.equal(x, y), f"chain: recovered {name} differs")
+    check([a.db for a in d.apps] == [a.db for a in rec.apps],
+          "chain: recovered apps differ")
+    check(rec.tick_num == d.tick_num, "chain: recovered tick differs")
+    rec.wal.close()
+    res.update({"durable_chains": durable_busy,
+                "durable_ticks": d.tick_num,
+                "durable_ms_per_tick": durable_s / d.tick_num * 1e3,
+                "acked_read_back": len(dacked) + len(acked),
+                "replay_s": replay_s})
+    return res
+
+
+def chain_phase(torch, pg, dev, work, G_1m=1 << 20, G_128k=1 << 17,
+                ticks_1m=30, ticks_128k=30, busy=8192, cluster_groups=1 << 17,
+                n_names=256, n_reconf=4, n_delete=4):
+    """The three chain legs; the durable one in ``work``."""
+    out = {"chain-1M": chain_1m_leg(torch, pg, dev, 3, 8, 4, G_1m,
+                                    timed=ticks_1m,
+                                    cpu_ticks=min(3, ticks_1m))}
+    out["chain-128k"] = chain_128k_leg(torch, pg, dev, G_128k, 8, 2,
+                                       ticks_128k, min(busy, G_128k), work)
+    out["chain-cluster"] = cluster_phase(
+        torch, pg, dev, cluster_groups, n_names=n_names,
+        create_batch=n_names, put_batch=n_names, serial=min(64, n_names),
+        n_reconf=n_reconf, n_delete=n_delete, coordinator="chain")
+    return out
+
+
 # ------------------------------------------------------ profile (opt-in)
 
 def profile_tick(torch, dev, R, W, P, G, exec_budget, lag_budget=1024,
@@ -1677,6 +2358,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1714,7 +2396,7 @@ def main(argv=None) -> int:
         # the replay path: both legs' batched recoveries
         launches["replay"] = {k: dense["launches"][k] + sparse["launches"][k]
                               for k in dense["launches"]}
-        clu = cluster_phase(torch, pg, dev, 1 << 20)
+        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=2048)
         clu["card"] = card
         launches["cluster"] = clu["launches"]
         print("cluster " + json.dumps(clu), flush=True)
@@ -1730,6 +2412,30 @@ def main(argv=None) -> int:
         launches["replay"] = {k: launches["replay"][k]
                               + reads["replay_launches"][k]
                               for k in launches["replay"]}
+        work = tempfile.mkdtemp(prefix="chip_smoke_kv_chain_")
+        try:
+            kvp = device_kv_phase(torch, pg, dev, work,
+                                  manager_dps=mgr["dec_per_s"])
+            chp = chain_phase(torch, pg, dev, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        for leg, res in list(kvp.items()) + list(chp.items()):
+            res["card"] = card
+            print(leg + " " + json.dumps(res), flush=True)
+
+        def total(*runs):
+            return {k: sum(r[k] for r in runs) for k in launches["tick"]}
+
+        # the device app's main path (its 1M tick run, the manager's and
+        # its replay), the lazy baseline's ticks, the chain's two runs and
+        # the chain cluster's (chain active plane, Paxos RC plane)
+        launches["device_kv"] = total(
+            *(kvp[k]["launches"] for k in ("device-kv-1M", "device-kv-128k",
+                                           "device-kv-recover")))
+        launches["baselines"] = kvp["baselines-128k"]["lazy"]["launches"]
+        launches["chain"] = total(chp["chain-1M"]["launches"],
+                                  chp["chain-128k"]["launches"])
+        launches["chain_cluster"] = chp["chain-cluster"]["launches"]
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)
@@ -1764,6 +2470,7 @@ def main(argv=None) -> int:
                                          "bound_share")}
                       for r in mine],
         })
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,8 +8,8 @@ replica's app must reach the same state (``execute`` may not depend on
 anything but (name, request)).
 
 Host apps subclass :class:`Replicable`: arbitrary Python, executed on the
-host from the device's decision stream.  (Device-resident apps come with
-the device-KV slice of the port.)
+host from the device's decision stream.  The device-resident KV app is
+``models/device_kv.py``.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ Device shape (Mode A): all active replicas of one deployment share a single
 dense-device data plane — node ids are replica slots of one mesh program —
 so the cluster owns
 
-* one active-side :class:`PaxosManager` (R = #actives) + TickDriver,
+* one active-side :class:`PaxosManager` (R = #actives) + TickDriver, or a
+  :class:`~.chain.ChainManager` with ``coordinator="chain"``,
 * one RC-side :class:`PaxosManager` (R = #reconfigurators) + TickDriver,
   whose apps are the :class:`ReconfiguratorDB` replicas,
 * per active node id: a Messenger + :class:`ActiveReplica`,
@@ -20,13 +21,14 @@ so the cluster owns
 
 Both planes live on one device: ``device=None`` means CUDA and raises where
 there is no card (``device.resolve_device``); tests pass ``device="cpu"``.
-Options of later slices raise ``NotImplementedError`` naming their slice:
-``coordinator="chain"`` (the chain slice) and the rebalancer daemon (the
-placement slice, with the mesh).
+The rebalancer daemon comes with a later slice of the port (placement,
+with the mesh) and raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 import signal
 import threading
@@ -94,8 +96,12 @@ class InProcessCluster:
         n_slots = len(active_ids) + spare_replica_slots
         apps = [app_factory() for _ in range(n_slots)]
         if coordinator == "chain":
-            raise NotImplementedError(
-                "not ported yet: coordinator='chain' (the chain slice)")
+            from .chain import ChainManager, ChainReplicaCoordinator
+
+            self.manager = ChainManager(cfg, n_slots, apps, wal=wal,
+                                        device=self.device)
+            self.coordinator = ChainReplicaCoordinator(self.manager,
+                                                       active_ids)
         elif coordinator == "paxos":
             if wal_dir is not None:
                 if wal is not None:
@@ -120,16 +126,19 @@ class InProcessCluster:
         rc_apps = [ReconfiguratorDB(r) for r in rc_ids] + [
             ReconfiguratorDB(f"_spare{i}") for i in range(spare_rc_slots)
         ]
-        # (the RC plane gets the data plane's cfg; a device-app data plane,
-        # whose mode the RC DB must not inherit, comes with the device-KV
-        # slice and is refused by the data-plane manager above)
+        # the RC DB is a host state machine: a device-app data plane must
+        # not leak its mode into the control plane's manager
+        rc_cfg = cfg
+        if cfg.paxos.device_app:
+            rc_cfg = copy.copy(cfg)
+            rc_cfg.paxos = dataclasses.replace(cfg.paxos, device_app=False)
         if rc_wal_dir is not None:
             if rc_wal is not None:
                 raise ValueError("pass rc_wal= or rc_wal_dir=, not both")
-            self.rc_manager = self._open_plane(cfg, len(rc_apps), rc_apps,
+            self.rc_manager = self._open_plane(rc_cfg, len(rc_apps), rc_apps,
                                                rc_wal_dir, "rc", self.device)
         else:
-            self.rc_manager = PaxosManager(cfg, len(rc_apps), rc_apps,
+            self.rc_manager = PaxosManager(rc_cfg, len(rc_apps), rc_apps,
                                            wal=rc_wal, spill_ns="rc",
                                            device=self.device)
         self.rdb = RepliconfigurableReconfiguratorDB(

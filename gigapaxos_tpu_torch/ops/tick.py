@@ -929,11 +929,16 @@ def paxos_tick_compact_lease(state, lease: LeaseState, inbox: TickInbox,
 
 
 class CompactLayout:
-    """Offsets of the compacted-outbox flat buffer.
+    """Offsets of the compacted-outbox flat buffer: producers
+    (:func:`_compact_outbox_impl`, and ``models.device_kv.fused_compact``,
+    which appends its per-execution extras) and consumers
+    (:func:`unpack_compact`, the manager, device-app replay) all slice
+    through this one object.
 
     Section order: header[3] | taken_bits[R*G] | e_rid[E] | e_meta[E] |
     e_slot[E] | e_row[E] | l_rep[Lb] | l_row[Lb] | l_donor[Lb] |
-    l_dexec[Lb] | l_dstat[Lb] | l_lexec[Lb]."""
+    l_dexec[Lb] | l_dstat[Lb] | l_lexec[Lb] | app extras (device app:
+    e_resp[E] | e_miss[E])."""
 
     HEADER = 3  # n_exec, decided_total, lag_n
 
@@ -945,7 +950,16 @@ class CompactLayout:
         self.o_taken = self.HEADER
         self.o_exec = self.o_taken + R * G      # 4 E-sized exec columns
         self.o_lag = self.o_exec + 4 * self.E   # LAG_COLS Lb-sized columns
-        self.total_plain = self.o_lag + self.LAG_COLS * self.Lb
+        self.base = self.o_lag + self.LAG_COLS * self.Lb  # app extras
+        self.o_resp = self.base                 # device app: KV responses
+        self.o_miss = self.base + self.E        # device app: descriptor miss
+        self.total_plain = self.base
+        self.total_device = self.base + 2 * self.E
+
+    def kv_extras(self, flat):
+        """Device-app extras aligned with the exec stream: (e_resp, e_miss)."""
+        return (flat[self.o_resp:self.o_resp + self.E],
+                flat[self.o_miss:self.o_miss + self.E])
 
 
 def unpack_compact(flat, R: int, G: int, exec_budget: int,

@@ -21,12 +21,17 @@ It owns:
   leases (``read_leases``: lease columns folded in the tick, local reads
   against their host mirror) and group health (``group_health``: stall,
   churn and heat columns reduced to an O(K) pack per tick).  Every
-  combination ticks through the one dispatch ``ops.tick.paxos_tick_health``.
+  combination ticks through the one dispatch ``ops.tick.paxos_tick_health``;
+* the optional device-resident app (``device_app``,
+  ``models/device_kv.py``): request descriptors upload and decisions
+  execute on the device inside one fused call per tick;
+* the two measurement baselines (``emulate_unreplicated``,
+  ``lazy_propagation``): the entry replica executes at admission.
 
-This slice ports the single-device path.  Options whose planes come with
-later slices of the port (the device app, the mesh, placement, fast
-re-election, the measurement baselines) raise ``NotImplementedError`` at
-construction.
+The mesh and placement come with later slices of the port and raise
+``NotImplementedError`` at construction.  ``fast_reelection`` is accepted
+and, as in the reference's Mode A manager, changes nothing here (only Mode
+B elects through it).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import collections
 import itertools
 import os
+import struct
 import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -44,14 +50,16 @@ import torch
 from .. import overload as _overload
 from ..config import GigapaxosTpuConfig
 from ..device import resolve_device
+from ..models.device_kv import DeviceKVApp, fused_compact, init_kv
 from ..models.replicable import Replicable
 from ..obs.metrics import registry as _obsreg
 from ..obs.phase import BLOCKING_PHASE as _BLOCKING_PHASE
 from ..obs.phase import phase_clock as _phase_clock
 from ..ops.tick import (LP_ASN, LP_EPOCH, LP_HOLDER, LP_UNTIL, LP_WAIT,
-                        CompactHostOutbox, HostOutbox, TickInbox,
-                        frontier_rows, health_clear_rows, init_health,
-                        init_lease, lease_clear_rows, merge_compact_outbox,
+                        CompactHostOutbox, CompactLayout, HostOutbox,
+                        TickInbox, _host, frontier_rows, health_clear_rows,
+                        init_health, init_lease, lease_clear_rows,
+                        merge_compact_outbox,
                         merge_health, merge_outbox, paxos_tick_health,
                         sweep_frontier, unpack_compact, unpack_health,
                         unpack_outbox)
@@ -83,19 +91,44 @@ class RequestRecord:
 
 
 def _unported(cfg: GigapaxosTpuConfig) -> List[str]:
-    """Names of the set options whose planes this slice does not port."""
+    """Names of the set options whose planes this slice does not port (a
+    device-app mesh is refused with the reference's ValueError instead)."""
     p = cfg.paxos
     checks = [
-        (p.device_app, "paxos.device_app (the device-KV slice)"),
-        (p.mesh_devices, "paxos.mesh_devices (the mesh slice)"),
-        (p.fast_reelection, "paxos.fast_reelection (the Mode B slice)"),
+        (p.mesh_devices and not p.device_app,
+         "paxos.mesh_devices (the mesh slice)"),
         (cfg.placement.enabled,
          "placement.enabled (the placement slice, with the mesh)"),
-        (p.emulate_unreplicated or p.lazy_propagation,
-         "paxos.emulate_unreplicated/lazy_propagation (measurement "
-         "baselines, with the benchmark slice)"),
     ]
     return [what for on, what in checks if on]
+
+
+def _refuse_device_app_combinations(cfg: GigapaxosTpuConfig) -> None:
+    """The reference's ValueErrors for the options the fused KV program
+    has no formulation for, in the reference's order."""
+    p = cfg.paxos
+    if not p.compact_outbox:
+        raise ValueError("device_app requires compact_outbox")
+    if p.register_groups:
+        raise ValueError(
+            "register_groups + device_app is not supported yet: the "
+            "fused KV program has no mixed-plane formulation")
+    if p.emulate_unreplicated or p.lazy_propagation:
+        raise ValueError(
+            "baseline modes are host-app measurement tools; the "
+            "device app executes on-device only")
+    if p.mesh_devices:
+        raise ValueError(
+            "device_app + mesh_devices is not supported yet: the "
+            "fused KV program has no shard_map formulation")
+    if p.read_leases:
+        raise ValueError(
+            "read_leases + device_app is not supported yet: the "
+            "fused KV program has no lease formulation")
+    if p.group_health:
+        raise ValueError(
+            "group_health + device_app is not supported yet: the "
+            "fused KV program has no health formulation")
 
 
 class PaxosManager:
@@ -116,6 +149,9 @@ class PaxosManager:
             raise NotImplementedError(
                 "not ported yet: " + ", ".join(missing))
         assert len(apps) == n_replicas
+        self._device_app = bool(cfg.paxos.device_app)
+        if self._device_app:
+            _refuse_device_app_combinations(cfg)
         self.cfg = cfg
         self.wal = wal
         self.device = resolve_device(device)
@@ -297,6 +333,31 @@ class PaxosManager:
         self._scr2_pos = None  # store-capacity scratch, allocated w/ store
         self._scr2_gen = None
         self._gen = 0
+        # ---- device-resident application (models/device_kv.py) ----
+        self.kv = None
+        if self._device_app:
+            table = cfg.paxos.kv_table or (
+                1 << max(16, (4 * self.G - 1).bit_length()))
+            # live-descriptor evictions must be impossible: rids are
+            # sequential and the admit window caps live spread at the bulk
+            # capacity, so a table >= 2x that can only ever evict
+            # descriptors of already-freed requests
+            table = max(table, 2 * self._bulk_cap)
+            self.kv = init_kv(self.R, self.G, cfg.paxos.kv_slots, table,
+                              device=self.device)
+            # the manager owns the device state; the Replicable faces the
+            # control plane sees are row-granular views of it
+            self.apps = [DeviceKVApp(self, r, row_of=self.rows.row)
+                         for r in range(self.R)]
+            self._kv_reg_budget = cfg.paxos.kv_reg_budget or 2 * self.G
+            self._kv_chunks: list = []  # staged descriptor uploads
+            self._kv_watermark = 0  # highest rid with descriptor on device
+            self._kv_uploaded = None  # this tick's upload (journaled)
+        self._in_kv_admit = False
+        #: recovery hooks (``wal.logger.recover``), set while a device-app
+        #: journal replays: the compact fold and the tick's kv_reg upload
+        self._replay_process = None
+        self._replay_kv_reg = None
         # inbox staging buffers; entries placed last tick are zeroed
         # lazily at the next build
         self._in_req = np.zeros((self.R, self.P, self.G_total), np.int32)
@@ -700,6 +761,7 @@ class PaxosManager:
         self.drain_pipeline()
         pst, prow = self._plane_state(row)
         st.free_groups(pst, np.array([prow]))
+        self._kv_clear_rows([row])
         self._clear_member_rows([row])
         self._lease_drop_rows([row])
         self._health_drop_rows([row])
@@ -828,6 +890,15 @@ class PaxosManager:
                 self.wal.log_pause(paused)
         return paused
 
+    def _kv_clear_rows(self, rows) -> None:
+        """Scrub device-app KV rows on free, in place: a recycled row must
+        not leak the previous occupant's keys to the next group."""
+        if self.kv is not None and len(rows):
+            r = torch.as_tensor(np.asarray(rows, np.int64),
+                                device=self.device)
+            self.kv.key[:, r] = 0
+            self.kv.val[:, r] = 0
+
     def _do_pause(self, names: List[str]) -> None:
         """Pause exactly ``names`` (selection already done)."""
         rows_to_free = []
@@ -835,9 +906,15 @@ class PaxosManager:
             row = self.rows.row(name)
             hri = st.extract_hri(self.state, row)
             hri["stopped"] = row in self._stopped_rows
+            if self.kv is not None:
+                # device-app state is keyed by row: it rides the spilled
+                # record or pause would silently drop it
+                hri["dkv_key"] = st.to_host(self.kv.key[:, row])
+                hri["dkv_val"] = st.to_host(self.kv.val[:, row])
             self._paused[name] = hri
             rows_to_free.append(row)
         st.free_groups(self.state, np.array(rows_to_free))
+        self._kv_clear_rows(rows_to_free)
         self._clear_member_rows(rows_to_free)
         self._lease_drop_rows(rows_to_free)
         self._health_drop_rows(rows_to_free)
@@ -865,6 +942,11 @@ class PaxosManager:
         # pause holds drained state (host == device), so the restored
         # device watermark is also the host-applied one for this row
         self._host_exec[:, row] = np.asarray(hri["exec_slot"], np.int32)
+        if self.kv is not None and "dkv_key" in hri:
+            self.kv.key[:, row] = torch.as_tensor(hri["dkv_key"],
+                                                  device=self.device)
+            self.kv.val[:, row] = torch.as_tensor(hri["dkv_val"],
+                                                  device=self.device)
         if hri.get("stopped"):
             self._stopped_rows.add(row)
             self._stopped_np[row] = True
@@ -1103,6 +1185,11 @@ class PaxosManager:
         Callbacks and sinks fire only once the WAL covering the request's
         tick is fsynced (log-before-respond).
         """
+        if self._device_app and not self._in_kv_admit:
+            raise ValueError(
+                "device-app managers admit bulk work via propose_bulk_kv "
+                "(a plain payload has no descriptor and could never place)"
+            )
         if self.wal is not None and not self.wal.accepting_writes():
             # storage low-watermark / failed WAL: whole batch sheds with
             # the transient-backpressure code (-2, plain retry); no
@@ -1175,6 +1262,21 @@ class PaxosManager:
         if entries is not None:
             e = int(entries)
             ent = np.where(self._member_np[e, rows], e, ent).astype(np.int32)
+        if self.cfg.paxos.emulate_unreplicated:
+            # measurement baseline (emulateUnreplicated,
+            # PaxosManager.java:1751-1799): execute at the entry replica
+            # now, respond, touch nothing else — no store, no tick, no
+            # journal
+            resps = self._baseline_exec(
+                rows, ent, payloads, rid0 + np.arange(n_adm, dtype=np.int64),
+                callbacks, eager_fire=True)
+            if batch_sink is not None:
+                # inline columnar delivery: no tick ever runs to route a
+                # sink block, and the baseline has no durability to gate
+                batch_sink(np.arange(n_adm, dtype=np.int64), resps)
+            self.stats["decisions"] += n_adm
+            out[np.nonzero(ok)[0][:n_adm]] = rid0 + np.arange(n_adm)
+            return out
         if not isinstance(payloads, (bytes, bytearray)):
             # per-request bodies: intern so duplicates collapse to one
             # shared object
@@ -1190,10 +1292,76 @@ class PaxosManager:
             for rid, cb in zip(rids, callbacks):
                 if cb is not None:
                     self._bulk_cbs[int(rid)] = cb
+        if self.cfg.paxos.lazy_propagation:
+            # measurement baseline (emulateLazyPropagation /
+            # EXECUTE_UPON_ACCEPT): the entry replica executes and responds
+            # now; the request still rides the consensus stream, so the
+            # other replicas converge through ordinary decisions (their
+            # mark_executed skips the entry's pre-set bit)
+            idx = store.idx_of(rids)
+            self._baseline_exec(rows, ent, store.payload[idx], rids,
+                                callbacks=None, eager_fire=False,
+                                store_idx=idx)
         self._bulk_chunks.append(rids)
         self._last_active[rows] = self.tick_num
         out[np.nonzero(ok)[0][:n_adm]] = rids
         return out
+
+    def _baseline_exec(self, rows, ent, payloads, rids, callbacks,
+                       eager_fire: bool, store_idx=None) -> list:
+        """Entry-replica immediate execution for the two measurement
+        baselines.  With ``store_idx`` (lazy mode) the store's entry exec
+        bit and responded flag are pre-set so commit-time execution skips
+        the entry replica and never responds again.  Returns the responses
+        aligned with the input order (b"" where the app returned none)."""
+        if isinstance(payloads, (bytes, bytearray)):
+            pa = np.empty(len(rows), object)
+            pa[:] = bytes(payloads)
+            payloads = pa
+        payloads = np.asarray(payloads, object)
+        rows = np.asarray(rows, np.int64)
+        eager: list = []
+        out_resps: list = [b""] * len(rows)
+        for r in range(self.R):
+            sel = ent == r
+            if not sel.any():
+                continue
+            erb = getattr(self.apps[r], "execute_rows_batch", None)
+            if erb is not None:
+                resp = erb(rows[sel], payloads[sel], rids[sel])
+            else:
+                resp = self.apps[r].execute_batch(
+                    self._row_name_np[rows[sel]], payloads[sel], rids[sel])
+            self.stats["executions"] += int(sel.sum())
+            if store_idx is not None:
+                si = store_idx[sel]
+                self.bulk.exec_mask[si] |= np.int64(1) << r
+                self.bulk.responded[si] = True
+                if resp is not None:
+                    ra = np.empty(len(si), object)
+                    ra[:] = resp
+                    self.bulk.response[si] = ra
+                if self._bulk_cbs or self._sink_blocks:
+                    self._bulk_fire(rids[sel],
+                                    resp if resp is not None
+                                    else [b""] * int(sel.sum()))
+            else:
+                for pos, j in enumerate(np.nonzero(sel)[0]):
+                    r_j = resp[pos] if resp is not None else b""
+                    out_resps[j] = r_j or b""
+                    if eager_fire and callbacks is not None \
+                            and callbacks[j] is not None:
+                        # fired inline below, never through the shared
+                        # durability-gated queue, whose other occupants
+                        # must keep waiting for their WAL sync
+                        eager.append((callbacks[j], int(rids[j]),
+                                      r_j or b""))
+        if eager_fire:
+            # the unreplicated baseline responds inline (no durability by
+            # definition)
+            for cb, rid, resp in eager:
+                cb(rid, resp)
+        return out_resps
 
     def _bulk_fire(self, rids, responses=None) -> None:
         """Queue completion callbacks for bulk rids that just reached their
@@ -1211,6 +1379,10 @@ class PaxosManager:
             for rid, resp in zip(rids, responses):
                 cb = self._bulk_cbs.pop(int(rid), None)
                 if cb is not None:
+                    if resp is not None and not isinstance(
+                            resp, (bytes, bytearray)):
+                        # device-app responses are int32 scalars
+                        resp = struct.pack("<i", int(resp))
                     self._held_callbacks.append((cb, int(rid), resp))
 
     def _sink_route(self, rids, responses) -> None:
@@ -1250,6 +1422,61 @@ class PaxosManager:
             self._held_callbacks.append((fire, -1, None))
         if gc:
             self._sink_blocks = [b for b in blocks if b[2] > 0]
+
+    @_locked
+    def propose_bulk_kv(self, rows, ops, keys, vals,
+                        callbacks=None, entries=None) -> np.ndarray:
+        """Device-app propose: admit requests whose execution is a KV
+        descriptor (op, key, val), uploaded to the device table inside the
+        fused tick — the decision stream never surfaces as host work.
+        Returns rids like :meth:`propose_bulk` (negative = not admitted)."""
+        assert self._device_app, "propose_bulk_kv needs cfg.paxos.device_app"
+        self._in_kv_admit = True
+        try:
+            out = self.propose_bulk(rows, b"", callbacks=callbacks,
+                                    entries=entries)
+        finally:
+            self._in_kv_admit = False
+        adm = out >= 0
+        if adm.any():
+            self._kv_chunks.append((
+                out[adm],
+                np.asarray(ops, np.int32)[adm],
+                np.asarray(keys, np.int32)[adm],
+                np.asarray(vals, np.int32)[adm],
+            ))
+        return out
+
+    def _take_kv_uploads(self):
+        """Pull up to kv_reg_budget staged descriptors for this tick's
+        fused upload; advances the placement watermark.  Returns padded
+        [K] arrays (rid 0 = empty slot)."""
+        K = self._kv_reg_budget
+        take, total = [], 0
+        while self._kv_chunks and total < K:
+            c = self._kv_chunks[0]
+            room = K - total
+            if len(c[0]) <= room:
+                take.append(c)
+                total += len(c[0])
+                self._kv_chunks.pop(0)
+            else:
+                take.append(tuple(a[:room] for a in c))
+                self._kv_chunks[0] = tuple(a[room:] for a in c)
+                total += room
+        cols = [np.zeros(K, np.int32) for _ in range(4)]
+        o = 0
+        for c in take:
+            n = len(c[0])
+            for dst, a in zip(cols, c):
+                dst[o:o + n] = a
+            o += n
+        if o:
+            self._kv_watermark = max(self._kv_watermark,
+                                     int(cols[0][:o].max()))
+        self._kv_uploaded = (tuple(a[:o].copy() for a in cols) if o
+                             else None)
+        return tuple(cols)
 
     def bulk_response(self, rid: int):
         """Response payload of an entry-replica-completed bulk request;
@@ -1390,6 +1617,17 @@ class PaxosManager:
         if not len(q):
             self._bulk_leftover = np.zeros(0, np.int64)
             return
+        hold = np.zeros(0, np.int64)
+        if self._device_app:
+            # a request may only be placed once its descriptor upload is on
+            # (or riding to) the device — rids beyond the watermark wait
+            wm = q <= self._kv_watermark
+            if not wm.all():
+                hold = q[~wm]
+                q, idx, rows = q[wm], idx[wm], rows[wm]
+                if not len(q):
+                    self._bulk_leftover = hold
+                    return
         entries = store.entry[idx]
         qk = np.zeros(0, np.int64)
         if not self.alive.all():
@@ -1440,7 +1678,7 @@ class PaxosManager:
             stp[fe, fp, fr] = store.stop[idx[fit]]
             self._bulk_placed = (q[fit], fe, fp, fr)
         rest = q[~fit]
-        parts = [p for p in (rest, qk) if p.size]
+        parts = [p for p in (rest, hold, qk) if p.size]
         self._bulk_leftover = (np.concatenate(parts) if len(parts) > 1
                                else (parts[0] if parts else rest))
 
@@ -1517,23 +1755,35 @@ class PaxosManager:
                 + (self.bulk.n_live if self.bulk is not None else 0))
         self._run_due_laggard_syncs()
         pc.mark("repair")
+        if self._device_app:
+            # the descriptor upload rides the same fused call as the tick;
+            # the watermark advances BEFORE the build so those rids place
+            reg = self._take_kv_uploads()
         inbox = self._build_inbox()
         pc.mark("intake")
         placed = self._placed
         bulk_placed = self._bulk_placed
-        # one dispatch covers every combination of planes and folds; absent
-        # ones are None (the packed path runs with no exec budget)
-        (self.state, self.rstate, self._lease, self._rlease, self._health,
-         self._rhealth, pk_l, pk_r, lp_l, lp_r, hp_l,
-         hp_r) = paxos_tick_health(
-            self.state, self.rstate, self._lease, self._rlease, self._health,
-            self._rhealth, inbox, -1,
-            self._exec_budget if self._use_compact else 0, self._lag_budget,
-            self._lease_horizon, self._use_compact, self._health_wedge,
-            self._health_shift, self._health_topk)
-        packed = pk_l if pk_r is None else (pk_l, pk_r)
-        lease_pack = lp_l if lp_r is None else (lp_l, lp_r)
-        health_pack = hp_l if hp_r is None else (hp_l, hp_r)
+        if self._device_app:
+            # leases, health and register planes are refused at
+            # construction, so the fused KV call is the whole tick
+            self.state, self.kv, packed = fused_compact(
+                self.state, self.kv, inbox, *reg, -1,
+                self._exec_budget, self._lag_budget)
+            lease_pack = health_pack = None
+        else:
+            # one dispatch covers every combination of planes and folds;
+            # absent ones are None (the packed path runs with no budget)
+            (self.state, self.rstate, self._lease, self._rlease,
+             self._health, self._rhealth, pk_l, pk_r, lp_l, lp_r, hp_l,
+             hp_r) = paxos_tick_health(
+                self.state, self.rstate, self._lease, self._rlease,
+                self._health, self._rhealth, inbox, -1,
+                self._exec_budget if self._use_compact else 0,
+                self._lag_budget, self._lease_horizon, self._use_compact,
+                self._health_wedge, self._health_shift, self._health_topk)
+            packed = pk_l if pk_r is None else (pk_l, pk_r)
+            lease_pack = lp_l if lp_r is None else (lp_l, lp_r)
+            health_pack = hp_l if hp_r is None else (hp_l, hp_r)
         # device sweep frontier: computed only at the dispatch whose
         # completion runs _sweep_outstanding, from THIS tick's post-state,
         # with the O(rows) gather enqueued right behind it.  Mixed planes
@@ -1605,10 +1855,18 @@ class PaxosManager:
                                    self._exec_budget, self._lag_budget),
                     self.G)
             else:
+                packed = _host(packed)
                 out = unpack_compact(packed, self.R, self.G,
                                      self._exec_budget, self._lag_budget)
+            e_resp = e_miss = None
+            if self._device_app:
+                # the extras are sliced through the shared layout, which
+                # fused_compact packs them by
+                e_resp, e_miss = CompactLayout(
+                    self.R, self.G, self._exec_budget,
+                    self._lag_budget).kv_extras(packed)
             pc.mark("tally")
-            self._process_compact(out, placed, bulk_placed)
+            self._process_compact(out, placed, bulk_placed, e_resp, e_miss)
         else:
             if isinstance(packed, tuple):
                 # the register plane is W=1 over G_reg columns; its exec
@@ -1754,13 +2012,28 @@ class PaxosManager:
         s.exec_mask[sidx] |= bit
         if s.slot[sidx] < 0:
             s.slot[sidx] = slot
-        resp = self.apps[r].execute(self._row_name_np[row], s.payload[sidx],
-                                    rid)
-        self.stats["executions"] += 1
+        payload = s.payload[sidx]
+        desc_lost = False
+        if self._device_app and len(payload or b"") == 0:
+            # device-app store requests carry no host payload (the
+            # descriptor lives in the device table); reaching the scalar
+            # path with nothing to re-apply means the descriptor was lost.
+            # Fail the request explicitly: executing b"" would be an empty
+            # success that silently lost the update
+            desc_lost = True
+            resp = None
+        else:
+            resp = self.apps[r].execute(self._row_name_np[row], payload,
+                                        rid)
+            self.stats["executions"] += 1
         if s.entry[sidx] == r and not s.responded[sidx]:
             s.responded[sidx] = True
             s.response[sidx] = resp
-            if self._bulk_cbs or self._sink_blocks:
+            if desc_lost:
+                self.stats["failed_requests"] += 1
+                if self._bulk_cbs or self._sink_blocks:
+                    self._bulk_fire([rid])  # cb(None): a visible failure
+            elif self._bulk_cbs or self._sink_blocks:
                 self._bulk_fire([rid], [resp if resp is not None else b""])
         full = self._member_bits[row]
         if s.responded[sidx] and (s.exec_mask[sidx] & full) == full:
@@ -1771,10 +2044,16 @@ class PaxosManager:
             s.done += 1
 
     def _process_compact(self, co: CompactHostOutbox, placed=None,
-                         bulk_placed=None) -> None:
+                         bulk_placed=None, e_resp=None,
+                         e_miss=None) -> None:
         """Vectorized twin of :meth:`_process_outbox` over the compacted
         stream: every lifecycle step is an index-array operation; only
-        stops and non-store (dict) requests fall back to per-item code."""
+        stops and non-store (dict) requests fall back to per-item code.
+
+        e_resp/e_miss: device-app extras aligned with the exec stream —
+        per-execution KV responses and descriptor-miss flags.  Misses go
+        through the scalar path, whose app ``execute`` re-applies the
+        descriptor on the host (or fails the request if it is gone)."""
         taken = co.taken_bits
         for row, take in (placed or []):
             for rid, entry, p in reversed(take):
@@ -1811,9 +2090,16 @@ class PaxosManager:
                 ok &= valid
             else:
                 idx, ok = None, np.zeros(n, bool)
-            # stops and dict-path/orphan rids: scalar path (rare at scale)
+            # stops, dict-path/orphan rids and device-app descriptor
+            # misses: scalar path (rare at scale)
             per_item = (valid & ~ok) | stops
             vec = ok & ~stops
+            if e_miss is not None:
+                miss = e_miss[:n].astype(bool) & valid
+                if miss.any():
+                    self.stats["kv_misses"] += int(miss.sum())
+                    per_item |= miss
+                    vec &= ~miss
             for i in np.nonzero(per_item)[0]:
                 row = int(rows[i])
                 name = self.rows.name(row)
@@ -1848,15 +2134,22 @@ class PaxosManager:
                     continue
                 ns = store.slot[idx_r] < 0
                 store.slot[idx_r[ns]] = slot_r[ns]
-                erb = getattr(self.apps[r], "execute_rows_batch", None)
-                if erb is not None:
-                    resp = erb(row_r, store.payload[idx_r], rid_r,
-                               lens=store.pay_len[idx_r])
+                if e_resp is not None:
+                    # device app: execution already happened on the device
+                    # inside the fused tick; only responses surface
+                    resp = e_resp[:n][sel][fo]
+                    if not fresh.all():
+                        resp = resp[fresh]
                 else:
-                    resp = self.apps[r].execute_batch(
-                        self._row_name_np[row_r], store.payload[idx_r],
-                        rid_r
-                    )
+                    erb = getattr(self.apps[r], "execute_rows_batch", None)
+                    if erb is not None:
+                        resp = erb(row_r, store.payload[idx_r], rid_r,
+                                   lens=store.pay_len[idx_r])
+                    else:
+                        resp = self.apps[r].execute_batch(
+                            self._row_name_np[row_r], store.payload[idx_r],
+                            rid_r
+                        )
                 self.stats["executions"] += len(idx_r)
                 em = (store.entry[idx_r] == r) & ~store.responded[idx_r]
                 ri = idx_r[em]

@@ -256,11 +256,26 @@ class PaxosReplicaCoordinator(AbstractReplicaCoordinator):
             sel_payloads = [p for p, s in zip(payloads, sel) if s]
             sel_cbs = [c for c, s in zip(cbs, sel) if s]
             if getattr(self.manager, "_device_app", False):
-                # device app: payloads are 12-byte descriptors admitted
-                # through the manager's kv path (propose_bulk_kv)
-                raise NotImplementedError(
-                    "not ported yet: device-app batches (the device-KV "
-                    "slice)")
+                # device app: payloads ARE 12-byte descriptors; decode the
+                # frame column by column and admit through the kv path.  A
+                # malformed payload rejects individually (-3): it must not
+                # black-hole the frame's valid requests
+                from ..models.device_kv import DESC_LEN
+
+                good = np.fromiter(
+                    (len(p) == DESC_LEN for p in sel_payloads),
+                    bool, len(sel_payloads),
+                )
+                si = np.nonzero(sel)[0]
+                out[si[~good]] = -3
+                if good.any():
+                    gp = [p for p, g in zip(sel_payloads, good) if g]
+                    d = np.frombuffer(b"".join(gp), np.int32).reshape(-1, 3)
+                    out[si[good]] = self.manager.propose_bulk_kv(
+                        rows[sel][good], d[:, 0], d[:, 1], d[:, 2],
+                        callbacks=[c for c, g in zip(sel_cbs, good) if g],
+                        entries=slot,
+                    )
             else:
                 out[sel] = self.manager.propose_bulk(
                     rows[sel], sel_payloads,

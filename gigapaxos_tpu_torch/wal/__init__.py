@@ -1,5 +1,6 @@
 """Write-ahead logging and recovery (host-side persistence layer)."""
 
+from .chain_logger import ChainLogger, recover_chain
 from .logger import PaxosLogger, recover
 
-__all__ = ["PaxosLogger", "recover"]
+__all__ = ["ChainLogger", "PaxosLogger", "recover", "recover_chain"]

@@ -27,9 +27,11 @@ logger: either package recovers a directory the other wrote.  Register-plane
 writes ride ``OP_REG`` records and the register-mode bit the 5-field
 ``OP_CREATE``; the register plane and the lease columns snapshot under the
 ``reg_``, ``lease_`` and ``rlease_`` prefixes (health columns are observation
-only and never journaled).  The device-KV and mesh planes come with later
-slices of the port; their records and snapshot fields raise
-``NotImplementedError`` naming the slice.
+only and never journaled).  A device-app manager journals each tick's
+descriptor upload in the ``OP_TICK`` record's ``kv_reg`` field and
+snapshots its KV store and table under the ``dkv_`` prefix.  Targeted
+creates (``OP_CREATE_AT``) come with a later slice of the port and raise
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -70,7 +72,6 @@ _SNAP_FTR = struct.Struct("<II")  # crc32(blob), len(blob); then SNAP_MAGIC
 #: tuple is unambiguous; old journals (raw bodies only) decode unchanged.
 _PAYREF = "\x00payref"
 
-_DEVICE_KV_SLICE = "device-KV records (the device-KV slice of the port)"
 
 
 def _payref(digest: bytes) -> tuple:
@@ -504,7 +505,9 @@ class PaxosLogger:
         copy of the liveness vector the tick's inbox was built from (the
         device copy is never read back)."""
         m = self.manager
-        g_log, has_reg = m.G, bool(m.G_reg)
+        # the chain manager journals through this method too: it has no
+        # register plane, bulk store or device app
+        g_log, has_reg = m.G, bool(getattr(m, "G_reg", 0))
 
         def _entries(take):
             out = []
@@ -538,7 +541,7 @@ class PaxosLogger:
             # it and folds the rows into the same tick's inbox
             self._append(records.dumps((OP_REG, tick_num, reg_placed)))
         bulk = None
-        bp = m._bulk_placed
+        bp = getattr(m, "_bulk_placed", None)
         if bp is not None:
             rids, be, bpp, br = bp
             idx = m.bulk.idx_of(rids)
@@ -551,9 +554,16 @@ class PaxosLogger:
                 m.bulk.stop[idx].tobytes(),
                 list(payloads),
             )
+        kv_reg = None
+        up = getattr(m, "_kv_uploaded", None)
+        if up is not None:
+            # device app: descriptor uploads replay in upload order (they
+            # are device-state writes, like the tick itself)
+            kv_reg = tuple(a.tobytes() for a in up)
+            m._kv_uploaded = None
         rec_bytes = records.dumps((OP_TICK, tick_num, placed_with_payloads,
                                    np.asarray(alive, bool).tobytes(), bulk,
-                                   None))
+                                   kv_reg))
         self._append(rec_bytes)
         self._append_bytes.inc(len(rec_bytes))
         self._ticks_since_sync += 1
@@ -585,8 +595,7 @@ class PaxosLogger:
     # -------------------------------------------------------------- checkpoint
     def _meta(self, m) -> dict:
         """Manager snapshot metadata.  Keys, order and values are the JAX
-        package's, so either package restores the other's snapshots; the
-        device-KV fields are None in this slice."""
+        package's, so either package restores the other's snapshots."""
         return {
             "tick_num": m.tick_num,
             "next_rid": m._next_rid,
@@ -619,15 +628,24 @@ class PaxosLogger:
                 and (m._bulk_leftover.size or m._bulk_chunks)
                 else None
             ),
-            "kv_chunks": None,
-            "kv_watermark": None,
+            # device app: staged-but-not-yet-uploaded descriptors and the
+            # placement watermark (uploads already on the device replay
+            # from the journal's kv_reg fields)
+            "kv_chunks": (
+                [tuple(a.tobytes() for a in c) for c in m._kv_chunks]
+                if m._device_app else None
+            ),
+            "kv_watermark": m._kv_watermark if m._device_app else None,
+            # device-app managers snapshot the device tensors verbatim
+            # (dkv_* in the npz); the per-name app projection would be
+            # redundant and lossy (key 0 is the empty-slot sentinel)
             "apps": [
                 {
                     name: m.apps[i].checkpoint(name)
                     for name in list(m.rows.names()) + list(m._paused)
                 }
                 for i in range(m.R)
-            ],
+            ] if not m._device_app else None,
         }
 
     @staticmethod
@@ -646,12 +664,18 @@ class PaxosLogger:
         path = self._snapshot_path(new_seq)
         # host COPIES (a CPU tensor's .numpy() is a view of live state)
         state_np = {f: to_host(getattr(m.state, f)) for f in m.state._fields}
-        if m.rstate is not None:
+        # (the chain manager snapshots through this method too: it has only
+        # its state)
+        if getattr(m, "rstate", None) is not None:
             # mixed planes: the register plane snapshots alongside under a
             # reg_ prefix
             for f in m.rstate._fields:
                 state_np["reg_" + f] = to_host(getattr(m.rstate, f))
-        if m._lease is not None:
+        if getattr(m, "kv", None) is not None:
+            # device-app store and table beside the consensus arrays
+            for f in m.kv._fields:
+                state_np["dkv_" + f] = to_host(getattr(m.kv, f))
+        if getattr(m, "_lease", None) is not None:
             # lease columns + the lockstep clock under lease_/rlease_;
             # journal replay re-evolves them tick for tick, so the snapshot
             # is their only root
@@ -851,9 +875,8 @@ def _resolve_tick_payrefs(rec, pay_tab: dict):
 
 
 def _decode_for_replay(raw: bytes, pay_tab: dict):
-    """Decode one record for either replay arm: whitelist, payref
-    resolution (OP_TICK and OP_REG), and a refusal of the device-KV
-    records, whose plane this slice does not port (never a silent skip)."""
+    """Decode one record for either replay arm: whitelist and payref
+    resolution (OP_TICK and OP_REG)."""
     rec = _load_op(raw, OP_SCHEMA)
     op = rec[0]
     if op == OP_REG:
@@ -861,8 +884,6 @@ def _decode_for_replay(raw: bytes, pay_tab: dict):
         # may payref bodies first seen here
         return (OP_REG, rec[1], _resolve_placed(rec[2], pay_tab))
     if op == OP_TICK:
-        if len(rec) > 5 and rec[5] is not None:
-            raise NotImplementedError(_DEVICE_KV_SLICE)
         rec = _resolve_tick_payrefs(rec, pay_tab)
     return rec
 
@@ -1007,7 +1028,10 @@ def _replay_admin_op(m, rec) -> None:
         _, name, members, epoch = rec[:4]
         register = bool(rec[4]) if len(rec) > 4 else False
         if name not in m.rows:
-            m.create_paxos_instance(name, members, epoch, register=register)
+            if register:
+                m.create_paxos_instance(name, members, epoch, register=True)
+            else:  # (the chain manager takes no register bit)
+                m.create_paxos_instance(name, members, epoch)
     elif op == OP_CREATE_AT:
         raise NotImplementedError(
             "targeted creates (OP_CREATE_AT) come with the control-plane "
@@ -1048,12 +1072,15 @@ def _post_replay(m) -> None:
     # laggard repairs during replay come ONLY from OP_SYNC records, but the
     # replayed completions still queued the lag they observed — discard it,
     # or the first live tick bursts through a journal's worth of stale
-    # (mostly already-repaired) transfer attempts
-    m._lag_sync_due.clear()
+    # (mostly already-repaired) transfer attempts.  (The chain manager has
+    # no laggard repair.)
+    if hasattr(m, "_lag_sync_due"):
+        m._lag_sync_due.clear()
     # the repaired-last-call filter must not carry replay-era keys into the
     # first live tick: a key wrongly present would skip a genuinely due
     # repair (the filter is only valid for one completion's re-flags)
-    m._repaired_last.clear()
+    if hasattr(m, "_repaired_last"):
+        m._repaired_last.clear()
 
 
 def replay_journals(m, log_dir, start_seq, make_record, new_buffers, place,
@@ -1103,6 +1130,9 @@ def replay_journals(m, log_dir, start_seq, make_record, new_buffers, place,
             bulk_rec = rec[4] if len(rec) > 4 else None
             if tick_num < m.tick_num:
                 continue  # already inside the snapshot
+            # the device app's descriptor upload of this tick (read by
+            # its tick closure)
+            m._replay_kv_reg = rec[5] if len(rec) > 5 else None
             _replay_one_tick(m, placed, bulk_rec,
                              np.frombuffer(alive_b, dtype=bool), tick_num,
                              make_record, new_buffers, place, build_inbox,
@@ -1124,7 +1154,10 @@ def _replay_one_tick(m, placed, bulk_rec, alive, tick_num, make_record,
         on_place=lambda e, p, row, rid, stop: place(
             bufs, e, p, row, rid, stop))
     m.state, out = tick_fn(m.state, build_inbox(bufs, alive))
-    if bulk_placed is not None:
+    proc = getattr(m, "_replay_process", None)
+    if proc is not None:
+        proc(out, bulk_placed)
+    elif bulk_placed is not None:
         m._process_outbox(out, None, bulk_placed)
     else:
         m._process_outbox(out)
@@ -1502,10 +1535,6 @@ def _restore_snapshot(m, meta, arrs) -> None:
     from ..paxos.manager import RequestRecord
     from ..paxos.state import PaxosState, state_from_numpy, to_host
 
-    if any(k.startswith("dkv_") for k in arrs.files) or \
-            meta.get("kv_chunks") is not None or \
-            meta.get("kv_watermark") is not None:
-        raise NotImplementedError(_DEVICE_KV_SLICE)
     m.state = state_from_numpy([arrs[f] for f in PaxosState._fields],
                                device=m.device)
     if m.rstate is not None and any(k.startswith("reg_")
@@ -1554,6 +1583,18 @@ def _restore_snapshot(m, meta, arrs) -> None:
         m._ensure_bulk().restore(meta["bulk"])
     if meta.get("bulk_queue") is not None:
         m._bulk_leftover = np.asarray(meta["bulk_queue"], np.int64)
+    if m._device_app:
+        from ..models.device_kv import DeviceKVState
+
+        if any(k.startswith("dkv_") for k in arrs.files):
+            m.kv = DeviceKVState(*(
+                torch.as_tensor(np.array(arrs["dkv_" + f]), device=m.device)
+                for f in DeviceKVState._fields))
+        if meta.get("kv_watermark") is not None:
+            m._kv_watermark = int(meta["kv_watermark"])
+        for c in meta.get("kv_chunks") or []:
+            m._kv_chunks.append(tuple(
+                np.frombuffer(b, np.int32).copy() for b in c))
     for k, items in meta["seen"].items():
         m._seen[k] = collections.OrderedDict(items)
     for rid, name, row, payload, stop, entry, slot, eby, responded in meta[
@@ -1673,6 +1714,39 @@ def recover(cfg, n_replicas: int, apps, log_dir: str, native: bool = True,
         return (rids, be, bp, br)
 
     mode = replay_mode or os.environ.get("GPTPU_REPLAY_MODE", "batched")
+    if m._device_app:
+        # device-app replay: the live run's fused call, with the journaled
+        # descriptor uploads in order, on-device execution and the compact
+        # host fold, record at a time (the upload of each tick threads
+        # through the tick closure)
+        from ..models.device_kv import fused_compact
+        from ..ops.tick import CompactLayout, _host, unpack_compact
+
+        E, Lb, K = m._exec_budget, m._lag_budget, m._kv_reg_budget
+        layout = CompactLayout(m.R, m.G, E, Lb)
+
+        def tick_host(state, inbox):
+            reg = m._replay_kv_reg
+            cols = [np.zeros(K, np.int32) for _ in range(4)]
+            if reg is not None:
+                for buf, dst in zip(reg, cols):
+                    a = np.frombuffer(buf, np.int32)
+                    dst[:len(a)] = a
+                r0 = np.frombuffer(reg[0], np.int32)
+                if len(r0):
+                    m._kv_watermark = max(m._kv_watermark, int(r0.max()))
+            state, m.kv, packed = fused_compact(state, m.kv, inbox, *cols,
+                                                -1, E, Lb)
+            flat = _host(packed)
+            return state, (unpack_compact(flat, m.R, m.G, E, Lb),
+                           *layout.kv_extras(flat))
+
+        def _proc(out, bulk_placed):
+            co, er, em = out
+            m._process_compact(co, m._placed, bulk_placed, er, em)
+
+        m._replay_process = _proc
+        mode = "reference"
     if progress is None:
         progress = ReplayProgress(log_dir)
     try:
@@ -1694,6 +1768,7 @@ def recover(cfg, n_replicas: int, apps, log_dir: str, native: bool = True,
                 progress=progress)
     finally:
         progress.finish()
+    m._replay_process = m._replay_kv_reg = None
     # reattach logging
     logger.attach(m)
     m.wal = logger

@@ -59,8 +59,6 @@ def make_cfg(config_cls, n_active=5, n_rc=3):
 
 def test_unported_cluster_options_raise():
     cfg = make_cfg(PortConfig)
-    with pytest.raises(NotImplementedError, match="chain slice"):
-        PortCluster(cfg, PortKV, coordinator="chain", device="cpu")
     cfg.placement.enabled = True
     with pytest.raises(NotImplementedError, match="placement slice"):
         PortCluster(cfg, PortKV, device="cpu")
@@ -99,6 +97,7 @@ class Side:
     """One package's cluster and client."""
 
     def __init__(self, pkg):
+        self.pkg = pkg
         (cfg_cls, kv, cluster_cls, client_cls, self.ClientError, policy,
          kw) = PKGS[pkg]
         # migrate once after 25 requests (at most one more per 25 after):
@@ -225,8 +224,22 @@ def test_demand_driven_migration(sides):
         out = [c.create("hot")]
         before = sorted(c.request_actives("hot"))
         out += [c.request("hot", f"PUT k{i} {i}".encode()) for i in range(40)]
-        deadline = time.monotonic() + 30
-        after = before
+        # wait on the migration itself: the name's RC record at its primary
+        # reconfigurator reaches epoch 1 and READY (it runs through the RC
+        # plane's ticks, which a loaded host can slow a lot)
+        rc = s.cluster.reconfigurators[s.cluster.rdb.primary_of("hot")]
+        deadline = time.monotonic() + 120
+        while True:
+            rec = rc.db.get("hot")
+            if rec is not None and rec.epoch >= 1 and \
+                    rec.state.value == "READY":
+                break
+            assert time.monotonic() < deadline, (
+                f"{s.pkg}: the migration of 'hot' did not reach epoch 1 "
+                f"READY in 120 s (record: {rec})")
+            time.sleep(0.1)
+        # the other reconfigurators learn the record through the RC plane
+        after = sorted(c.request_actives("hot", force=True))
         while after == before and time.monotonic() < deadline:
             time.sleep(0.1)
             after = sorted(c.request_actives("hot", force=True))

@@ -222,13 +222,29 @@ def test_coordinator_session_equal(pipelined):
 
 
 def test_coordinator_unported_paths_raise():
+    """Targeted creates still raise; a device-app batch is admitted through
+    propose_bulk_kv, with a malformed descriptor refused alone (-3)."""
+    import struct
+
     cfg = PortConfig()
     cfg.paxos.max_groups = 8
     mgr = PortManager(cfg, 3, [PortKV() for _ in range(3)], device="cpu")
     coord = port_coord.PaxosReplicaCoordinator(mgr, ["A", "B", "C"])
     with pytest.raises(NotImplementedError, match="placement slice"):
         coord.create_replica_group_at("svc", 0, b"", ["A", "B"], row=3)
+    cfg.paxos.compact_outbox = True
+    cfg.paxos.device_app = True
+    mgr = PortManager(cfg, 3, [None] * 3, device="cpu")
+    coord = port_coord.PaxosReplicaCoordinator(mgr, ["A", "B", "C"])
     assert coord.create_replica_group("svc", 0, b"", ["A", "B", "C"])
-    mgr._device_app = True
-    with pytest.raises(NotImplementedError, match="device-KV slice"):
-        coord.coordinate_requests_batch([("svc", 0, b"x" * 12, None)])
+    got = []
+    out = coord.coordinate_requests_batch([
+        ("svc", 0, struct.pack("<iii", 1, 4, 40),
+         lambda rid, resp: got.append(resp)),
+        ("svc", 0, b"x" * 5, None),
+        ("svc", 1, struct.pack("<iii", 1, 4, 41), None),
+    ])
+    assert out[0] > 0 and out[1:] == [-3, -1]
+    for _ in range(6):
+        mgr.tick()
+    assert got == [struct.pack("<i", 40)]

@@ -23,7 +23,8 @@ def test_import_loads_no_jax_and_no_reference_module():
     mods = ["gigapaxos_tpu_torch"] + _submodules()
     for m in ("paxos.manager", "net.transport", "protocoltask.executor",
               "reconfiguration.active_replica", "node", "client",
-              "obs.flight"):
+              "obs.flight", "models.device_kv", "chain", "chain.tick",
+              "chain.manager", "wal.chain_logger"):
         assert f"gigapaxos_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

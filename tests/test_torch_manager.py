@@ -286,10 +286,7 @@ def test_bulk_compact_pipelined_with_crash_and_repair(pipeline):
     assert np.array_equal(a[0].acc, a[2].acc)
 
 
-@pytest.mark.parametrize("option,value", [
-    ("device_app", True), ("mesh_devices", 2), ("fast_reelection", True),
-    ("emulate_unreplicated", True),
-])
+@pytest.mark.parametrize("option,value", [("mesh_devices", 2)])
 def test_unported_options_raise(option, value):
     cfg = tcfg.GigapaxosTpuConfig()
     cfg.paxos.max_groups = 8
@@ -299,20 +296,57 @@ def test_unported_options_raise(option, value):
                           device="cpu")
 
 
+@pytest.mark.parametrize("option,extra", [
+    ("device_app", {}),
+    ("device_app", {"compact_outbox": True}),
+    ("fast_reelection", {}),
+    ("emulate_unreplicated", {}),
+])
+def test_ported_options_match_reference(option, extra):
+    """Options the reference's Mode A manager accepts build in the port
+    too and behave the same: the same responses, exec watermarks, states
+    and counters for the same proposals; or, where the reference refuses
+    the combination, the same ValueError."""
+    paxos = dict(extra, **{option: True})
+    try:
+        make(REF, app_kind="kv", groups=16, **paxos)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            make(PORT, app_kind="kv", groups=16, **paxos)
+        assert str(got.value) == str(e)
+        return
+    device = option == "device_app"
+
+    def wl(m, which):
+        m.create_paxos_instance("svc", [0, 1, 2])
+        got = []
+        for i in range(3):
+            body = (struct.pack("<iii", 1, i + 1, 10 * i) if device
+                    else f"PUT k{i} v{i}".encode())
+            m.propose("svc", body, lambda rid, resp: got.append(resp))
+        for _ in range(6):
+            m.tick()
+        return got, m.exec_watermarks("svc").tolist()
+
+    res = run_both(wl, app_kind="kv", groups=16, **paxos)
+    got, marks = res[PORT][4]
+    assert len(got) == 3 and marks == [3, 3, 3]
+
+
 def test_wal_raises_and_cuda_default_needs_card(monkeypatch, tmp_path):
     """A durable manager still refuses an unported plane (the WAL is
-    ported; the device KV app is not), and without a card the CUDA
-    default raises."""
+    ported; the mesh is not), and without a card the CUDA default
+    raises."""
     from gigapaxos_tpu_torch.wal.logger import PaxosLogger
 
     cfg = tcfg.GigapaxosTpuConfig()
     cfg.paxos.max_groups = 8
-    cfg.paxos.device_app = True
+    cfg.paxos.mesh_devices = 2
     apps = [trep.NoopApp() for _ in range(3)]
-    with pytest.raises(NotImplementedError, match="device-KV"):
+    with pytest.raises(NotImplementedError, match="mesh"):
         tmgr.PaxosManager(cfg, 3, apps, device="cpu",
                           wal=PaxosLogger(str(tmp_path), native=False))
-    cfg.paxos.device_app = False
+    cfg.paxos.mesh_devices = 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmgr.PaxosManager(cfg, 3, apps)

@@ -350,11 +350,8 @@ def test_native_backend_recovery_equals_python(tmp_path):
 
 
 def test_unported_records_raise_naming_their_slice(tmp_path):
-    """Device-KV and targeted-create records are refused, never
-    skipped."""
+    """Targeted-create records are refused, never skipped."""
     cases = [
-        ((tlog.OP_TICK, 0, [], np.ones(R, bool).tobytes(), None,
-          (b"", b"", b"", b"")), "device-KV"),
         ((tlog.OP_CREATE_AT, "x", [0, 1, 2], 0, 3, b""), "control-plane"),
     ]
     for i, (rec, word) in enumerate(cases):
@@ -366,6 +363,48 @@ def test_unported_records_raise_naming_their_slice(tmp_path):
         for mode in ("reference", "batched"):
             with pytest.raises(NotImplementedError, match=word):
                 recover(PORT, _cfg(PORT), d, mode)
+
+
+@pytest.mark.parametrize("mode", ["reference", "batched"])
+def test_kv_reg_records_replay_like_reference(tmp_path, mode):
+    """OP_TICK records with a kv_reg upload (a device-app journal written
+    by the JAX package) replay in the port to the reference's store,
+    table, state and bulk store, whichever arm is asked for (a device-app
+    manager always replays record at a time)."""
+    import struct
+
+    cfgs = {w: _cfg(w, groups=16, compact_outbox=True, device_app=True,
+                    bulk_capacity=1 << 16) for w in (REF, PORT)}
+    wal = jlog.PaxosLogger(str(tmp_path), sync_every_ticks=1,
+                           checkpoint_every_ticks=1024, native=False)
+    m = jmgr.PaxosManager(cfgs[REF], R, [None] * R, wal=wal)
+    for i in range(4):
+        m.create_paxos_instance(f"d{i}", [0, 1, 2])
+    rows = np.array([m.rows.row(f"d{i}") for i in range(4)])
+    for wave in range(5):
+        m.propose_bulk_kv(rows, [1] * 4, [wave + 1] * 4,
+                          [100 * wave + i for i in range(4)])
+        m.run_ticks(3)
+    m.propose("d2", struct.pack("<iii", 1, 9, 99))  # a journaled miss
+    m.run_ticks(5)
+    wal.close()
+    got = {}
+    for which in (REF, PORT):
+        kw = {"device": "cpu"} if which == PORT else {}
+        log = tlog if which == PORT else jlog
+        got[which] = log.recover(cfgs[which], R, [None] * R, str(tmp_path),
+                                 native=False, replay_mode=mode, **kw)
+        got[which].wal.close()
+    a, b = got[REF], got[PORT]
+    for name, x, y in zip(a.kv._fields, a.kv, b.kv):
+        assert np.array_equal(np.asarray(x), y.numpy()), name
+    for name, x, y in zip(tst.PaxosState._fields, a.state,
+                          tst.state_to_numpy(b.state)):
+        assert np.array_equal(np.asarray(x), y), name
+    assert a._kv_watermark == b._kv_watermark > 0
+    assert a.bulk_stats() == b.bulk_stats()
+    assert dict(a.stats) == dict(b.stats)
+    assert int(b.kv.val[0, a.rows.row("d2"), 9 & 7]) == 99
 
 
 # ------------------------------------------------------ storage faults
