@@ -36,8 +36,8 @@ the kernels are built for sm_90a).  It
 6. cluster phase: the port's ``InProcessCluster`` with 5 actives and 3
    reconfigurators on loopback ports, 2^20 rows on each plane (``KVApp``,
    3 replicas per name), driven through ``ReconfigurableAppClient``:
-   2,048 names created in batches, one PUT each through batched sends,
-   every name read back (256 of them one at a time for latency), 16 names
+   1,024 names created in batches, one PUT each through batched sends,
+   every name read back (128 of them one at a time for latency), 16 names
    reconfigured onto a rotated 3-of-5 set, 16 deleted, the survivors read
    back again and their app states held equal at every member.  Every tick
    of both planes must launch 5 gathers and 1 match;
@@ -67,8 +67,23 @@ the kernels are built for sm_90a).  It
    ``chain-128k`` a ``ChainManager`` at G=2^17 with 8,192 busy chains, its
    middle replica down for W/2 ticks, and a durable leg recovered with
    ``recover_chain``; ``chain-cluster`` an
-   ``InProcessCluster(coordinator="chain")`` on 2^17-row planes (256
-   names).  Each chain tick must launch 1 gather and no match.
+   ``InProcessCluster(coordinator="chain")`` on 2^17-row planes (128
+   names).  Each chain tick must launch 1 gather and no match;
+10. modeb phase: ``modeb-1M`` runs benchmarks/modeb_scale.py's shape —
+   three ``ModeBNode``s on loopback ``Messenger``s, each with its own
+   2^20-group state on the card (W=4, P=4, anti-entropy every 256 ticks):
+   bulk create, the election of every group, a warm and a steady wave
+   (frame bytes per node tick), a hot wave on 2^14 groups and a mass
+   laggard of 2^16 groups that N2 misses and catches up after
+   ``request_sync()``; N0's first ticks held against the CPU, every acked
+   commit executed exactly once at every node, the nodes' exec_slot
+   equal.  ``modeb-fast`` runs a coordinator failover over ``SimNet`` at
+   2^17 rows with 4,096 busy groups, fast re-election off and on (the fast
+   leg takes over in 1 tick and is quicker; both counts equal a small run
+   on the CPU).  ``modeb-device-128k`` runs three device-app nodes over
+   ``SimNet``: 4,096 PUTs a tick for 16 ticks, one forced down the miss
+   path; equal KV tables, every acked write read back.  Every node tick,
+   fast re-election on or off, must launch 5 gathers and 1 match.
 
 The kernels phase also holds both kernels against their plain versions at
 the narrow widths sparse replay gives them (A=8 groups, W=4), at the
@@ -77,9 +92,10 @@ durable manager and its dense replay give them, and at the cluster's two
 planes (R=5 and R=3, W=4, P=4, G=2^20), and at the planes phase's shapes
 (the W=1 register planes at G=917,504 and G=2^17, the log planes at W=8,
 G=2^17, P=1 and P=4), the chain cluster's reconfigurator plane (R=3,
-W=4, G=2^17), and the chain tick's one gather (three rings over a
+W=4, G=2^17), the chain tick's one gather (three rings over a
 per-replica index) at chain-1M, chain-128k and the chain cluster's active
-plane.
+plane, and a fast re-election tick's carryover launch (eight ``[W, G]``
+arrays) at the Mode B node's widths.
 
 It prints the card, the build, each phase's numbers, the run's total
 seconds, one ``{"kernels": ...}`` JSON line, and as its last line
@@ -381,6 +397,39 @@ def chain_case(torch, dev, R, W, G, prefix):
                 "per-lead", arrs, i_j)
 
 
+#: (W, G, label prefix) of a fast re-election tick's carryover set on the
+#: Mode B paths: modeb-1M (W=4, 2^20), the fast failover leg (W=8, 2^17),
+#: and the other widths the node tick takes (W=8 at 2^20, W=4 at 2^17)
+FAST_SHAPES = ((4, 1 << 20, "modeb fast W=4 1M: "),
+               (8, 1 << 20, "modeb fast W=8 1M: "),
+               (4, 1 << 17, "modeb fast W=4 128k: "),
+               (8, 1 << 17, "modeb fast W=8 128k: "))
+
+
+def fast_case(torch, dev, W, G, prefix):
+    """A fast tick's carryover launch, shaped and made as the tick makes
+    it: the carryover's c_req, c_stop, c_valid and s_j and the adoption
+    rule's m_req, m_stop, m_n and m_c, eight ``[W, G]`` arrays over the
+    window-to-ring rotation ``j_of_i = (j - base) & (W-1)``."""
+    gen = torch.Generator(device="cpu").manual_seed(777 + G + W)
+
+    def ints(lo=-2**31, hi=2**31 - 1):
+        return torch.randint(lo, hi, (W, G), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    def bools():
+        return (torch.rand((W, G), generator=gen) < 0.5).to(dev)
+
+    base = torch.randint(0, 2**30, (G,), generator=gen,
+                         dtype=torch.int32).to(dev)
+    jw = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
+    j_of_i = torch.bitwise_and(jw - base[None, :], W - 1)
+    arrs = [ints(), bools(), bools(), ints(0, 2**30), ints(), bools(),
+            ints(), ints(-1, 64)]
+    return Case("gather_planes", f"{prefix}S2f carryover+adoption "
+                f"8x[{W},G]", arrs, j_of_i)
+
+
 def kernels_phase(torch, pg, dev, R, W, P, G, bw):
     flush = L2Flush(torch, dev)
     rows = []
@@ -391,6 +440,8 @@ def kernels_phase(torch, pg, dev, R, W, P, G, bw):
             cases.append(c)
     cases += [chain_case(torch, dev, r, w, g, prefix)
               for r, w, g, prefix in CHAIN_SHAPES]
+    cases += [fast_case(torch, dev, w, g, prefix)
+              for w, g, prefix in FAST_SHAPES]
     for c in cases:
         what = f"{c.name} {c.label}"
         got = c.fused(pg)
@@ -2266,6 +2317,470 @@ def chain_phase(torch, pg, dev, work, G_1m=1 << 20, G_128k=1 << 17,
     return out
 
 
+# --------------------------------------------------------------- modeb phase
+
+MODEB_IDS = ("N0", "N1", "N2")
+
+
+def _exec_count_app():
+    """NoopApp that counts each executed request's payload (every payload
+    of the Mode B legs is unique, so a count of 1 is exactly-once)."""
+    import collections
+
+    from gigapaxos_tpu_torch.models.replicable import NoopApp
+
+    class Counted(NoopApp):
+        def __init__(self):
+            self.count = collections.Counter()
+
+        def execute(self, name, request, request_id):
+            self.count[bytes(request)] += 1
+            return super().execute(name, request, request_id)
+
+    return Counted()
+
+
+def modeb_cfg(G, **paxos):
+    """cfg defaults (W=4, P=4) with ``max_groups`` G and no deactivation,
+    as ``benchmarks/modeb_scale.py`` runs its nodes."""
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+
+    cfg = GigapaxosTpuConfig()
+    cfg.paxos.max_groups = G
+    cfg.paxos.deactivation_ticks = 0
+    for k, v in paxos.items():
+        setattr(cfg.paxos, k, v)
+    return cfg
+
+
+class _ModeBRun:
+    """Three nodes ticked in turn (then the SimNet pumped, when there is
+    one), with per-node tick times and the node-tick count for the launch
+    check."""
+
+    def __init__(self, nodes, net=None):
+        self.nodes, self.net = nodes, net
+        self.tick_ms = []
+
+    def node_ticks(self):
+        return sum(n.tick_num for n in self.nodes.values())
+
+    def spin(self, k=1, only=None):
+        for _ in range(k):
+            for nid, n in self.nodes.items():
+                if only is None or nid in only:
+                    t0 = time.perf_counter()
+                    n.tick()
+                    self.tick_ms.append((time.perf_counter() - t0) * 1e3)
+            if self.net is not None:
+                self.net.pump()
+
+    def wave(self, at, names, payloads, limit, only=None, tag="wave"):
+        """Propose ``payloads[i]`` on ``names[i]`` at node ``at``, tick until
+        every one is answered; -> (acked payloads, rounds, seconds)."""
+        done = []
+        t0 = time.perf_counter()
+        for name, p in zip(names, payloads):
+            rid = self.nodes[at].propose(
+                name, p, lambda _r, resp, p=p: done.append((p, resp)))
+            check(rid is not None, f"{tag}: propose refused on {name}")
+        rounds = 0
+        while len(done) < len(names):
+            self.spin(1, only=only)
+            rounds += 1
+            check(rounds <= limit, f"{tag}: {len(done)} of {len(names)} "
+                  f"answered after {limit} rounds")
+        wall = time.perf_counter() - t0
+        check(all(r is not None for _p, r in done), f"{tag}: a request "
+              "failed")
+        return [p for p, _r in done], rounds, wall
+
+
+def modeb_1m_leg(torch, pg, dev, G=1 << 20, warm=64, hot=1 << 14,
+                 laggard=1 << 16, cpu_ticks=3):
+    """``modeb-1M`` after ``benchmarks/modeb_scale.py:40-125``: three
+    ``ModeBNode``s in this process on loopback ``Messenger``s, each with
+    its own ``[3, W, G]`` state on ``dev``, ``NoopApp``-shaped apps,
+    anti-entropy every 256 ticks.  Bulk create, the election of every
+    group, a warm and a steady wave of ``warm`` commits, a hot wave of one
+    request on each of ``hot`` groups, then the mass laggard: N2 stops
+    ticking while ``laggard`` groups commit once each, and rejoins with
+    ``request_sync()``.  N0's first ``cpu_ticks`` node ticks are held
+    against the same ticks on the CPU."""
+    from gigapaxos_tpu_torch.modeb import ModeBNode
+    from gigapaxos_tpu_torch.modeb import kernel as mk
+    from gigapaxos_tpu_torch.net.messenger import Messenger, NodeMap
+    from gigapaxos_tpu_torch.ops import tick as pt
+    from gigapaxos_tpu_torch.paxos import state as st
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = modeb_cfg(G)
+    W, P = cfg.paxos.window, cfg.paxos.proposals_per_tick
+    nodemap = NodeMap()
+    msgs, apps, nodes = {}, {}, {}
+    for nid in MODEB_IDS:
+        msgs[nid] = Messenger(nid, ("127.0.0.1", 0), nodemap)
+        nodemap.add(nid, "127.0.0.1", msgs[nid].port)
+    try:
+        for nid in MODEB_IDS:
+            apps[nid] = _exec_count_app()
+            nodes[nid] = ModeBNode(cfg, list(MODEB_IDS), nid, apps[nid],
+                                   msgs[nid], anti_entropy_every=256,
+                                   device=dev)
+        n0, n2 = nodes["N0"], nodes["N2"]
+        probe = {"ticks": 0, "copy_ms": [], "bytes": 0, "cpu_equal": 0}
+        inner = n0._tick_packed
+
+        def packed(state, inbox):
+            k = probe["ticks"]
+            probe["ticks"] += 1
+            before = None
+            if k < cpu_ticks:
+                before = (st.PaxosState(*(t.cpu().clone() for t in state)),
+                          pt.TickInbox(*(t.cpu().clone() for t in inbox)))
+            new, flat = inner(state, inbox)
+            sync()
+            t0 = time.perf_counter()
+            host = flat.cpu()
+            probe["copy_ms"].append((time.perf_counter() - t0) * 1e3)
+            probe["bytes"] = flat.numel() * flat.element_size()
+            if before is not None:
+                cs, cflat = mk.node_tick_packed(n0.r, False)(*before)
+                check(torch.equal(cflat, host), f"modeb-1M: N0 tick {k}'s "
+                      "packed outbox differs from the CPU's")
+                for f, a, b in zip(st.PaxosState._fields, new, cs):
+                    check(torch.equal(a.cpu(), b), f"modeb-1M: N0 tick {k} "
+                          f"field {f} differs from the CPU's")
+                probe["cpu_equal"] += 1
+            return new, host
+
+        n0._tick_packed = packed
+        run = _ModeBRun(nodes)
+        names = [f"g{i}" for i in range(G)]
+        t0 = time.perf_counter()
+        for n in nodes.values():
+            check(n.create_groups_bulk(names, [0, 1, 2]) == G,
+                  "modeb-1M: bulk create")
+        create_s = time.perf_counter() - t0
+        pg.reset_launches()
+        ticks0 = run.node_ticks()
+        # every group elects N0; at 2^20 rows the first tick's full frame
+        # batch is over the transport's frame cap, so the births ride the
+        # rotating anti-entropy slices
+        t0 = time.perf_counter()
+        elect_rounds = 0
+        while not all((n._coord_view == 0).all() for n in nodes.values()):
+            run.spin(1)
+            elect_rounds += 1
+            check(elect_rounds <= 400, "modeb-1M: election did not finish")
+        elect_s = time.perf_counter() - t0
+        acked = []
+        p, warm_rounds, _ = run.wave("N0", names[:warm],
+                                     [f"w{i}".encode() for i in range(warm)],
+                                     200, tag="warm")
+        acked += p
+        for n in nodes.values():
+            n.stats["frame_bytes_sent"] = 0
+            n.stats["frame_groups"] = 0
+            n.stats["frames_sent"] = 0
+        t_before = run.node_ticks()
+        p, steady_rounds, _ = run.wave("N0", names[:warm],
+                                       [f"x{i}".encode()
+                                        for i in range(warm)],
+                                       200, tag="steady")
+        acked += p
+        st_ticks = run.node_ticks() - t_before
+        st_bytes = sum(n.stats["frame_bytes_sent"] for n in nodes.values())
+        st_rows = sum(n.stats["frame_groups"] for n in nodes.values())
+        # O(dirty): the anti-entropy slice (G/256 rows) plus the dirty rows
+        # of the wave, never the G-row state
+        check(st_rows / st_ticks <= G // 256 + 4 * warm,
+              f"modeb-1M: {st_rows / st_ticks} frame rows a node tick")
+        run.tick_ms.clear()
+        p, hot_rounds, hot_s = run.wave(
+            "N0", names[:hot], [f"h{i}".encode() for i in range(hot)], 400,
+            tag="hot")
+        acked += p
+        hot_ms = sorted(run.tick_ms)
+        # the mass laggard: N2 misses one commit on each of `laggard` groups
+        p, lag_rounds, lag_s = run.wave(
+            "N0", names[:laggard], [f"m{i}".encode() for i in range(laggard)],
+            800, only=("N0", "N1"), tag="laggard")
+        acked += p
+        for n in nodes.values():
+            n.stats["frame_bytes_sent"] = 0
+            n.stats["send_failures"] = 0
+        t0 = time.perf_counter()
+        n2.request_sync()
+        conv_rounds = 0
+        want = st.to_host(n0.state.exec_slot[n0.r])
+        while True:
+            run.spin(1)
+            conv_rounds += 1
+            if (st.to_host(n2.state.exec_slot[n2.r]) >= want).all():
+                break
+            check(conv_rounds <= 2000, "modeb-1M: N2 did not converge")
+        conv_s = time.perf_counter() - t0
+        residual = int(np.clip(want - st.to_host(n2.state.exec_slot[n2.r]),
+                               0, None).sum())
+        check(residual == 0, f"modeb-1M: residual lag {residual}")
+        sync_failures = sum(n.stats["send_failures"] for n in nodes.values())
+        rx_bytes = sum(n.stats["frame_bytes_sent"] for n in nodes.values())
+        run.spin(4)  # the last decisions reach every node's app
+        node_ticks = run.node_ticks() - ticks0
+        launches = None
+        if dev.type == "cuda":
+            launches = launches_now(pg, f"modeb-1M, {node_ticks} node ticks",
+                                    {"gather_planes": 5 * node_ticks,
+                                     "match_planes": node_ticks})
+        for nid in MODEB_IDS:
+            cnt = apps[nid].count
+            bad = [q for q in acked if cnt[q] != 1]
+            check(not bad, f"modeb-1M: {len(bad)} acked commits not "
+                  f"executed exactly once at {nid} (e.g. {bad[:3]})")
+        ex = [st.to_host(n.state.exec_slot[n.r]) for n in nodes.values()]
+        check(all(np.array_equal(ex[0], e) for e in ex[1:]),
+              "modeb-1M: the nodes' exec_slot differ")
+        check(probe["cpu_equal"] == cpu_ticks, "modeb-1M: CPU ticks held")
+        # the leg's node ticks are the first of the run's Mode B planes
+        phases = {nid: host_phases(nid) for nid in MODEB_IDS}
+        return {
+            "G": G, "W": W, "P": P, "anti_entropy_every": 256,
+            "create_bulk_s": create_s,
+            "elect": {"rounds": elect_rounds, "s": elect_s},
+            "warm": {"commits": warm, "rounds": warm_rounds},
+            "steady": {"commits": warm, "rounds": steady_rounds,
+                       "frame_bytes_per_node_tick": st_bytes / st_ticks,
+                       "frame_rows_per_node_tick": st_rows / st_ticks},
+            "hot": {"commits": hot, "rounds": hot_rounds, "s": hot_s,
+                    "commits_per_s": hot / hot_s,
+                    "node_tick_ms_mean": statistics.fmean(hot_ms),
+                    "node_tick_ms_p50": hot_ms[len(hot_ms) // 2],
+                    "node_tick_ms_p99": hot_ms[int(0.99 * (len(hot_ms)
+                                                           - 1))]},
+            "laggard": {"commits": laggard, "rounds": lag_rounds,
+                        "s": lag_s, "converge_rounds": conv_rounds,
+                        "converge_s": conv_s, "residual_lag_slots": residual,
+                        "frame_bytes_total": rx_bytes,
+                        "full_sync_send_failures": sync_failures},
+            "packed_outbox_bytes": probe["bytes"],
+            "packed_copy_ms_median": statistics.median(probe["copy_ms"]),
+            "cpu_ticks_equal": probe["cpu_equal"],
+            "acked": len(acked), "node_ticks": node_ticks,
+            "cut": {"hot_groups": hot, "laggard_groups": laggard,
+                    "why": "one Python propose per request"},
+            "host_ms_per_node_tick_by_phase": phases,
+            "launches": launches,
+        }
+    finally:
+        for m in msgs.values():
+            m.close()
+
+
+def _fast_failover(dev, G, busy, fast, W=8):
+    """``modeb-fast``'s schedule after ``tests/test_fast_reelection.py:
+    200-230``, widened: three nodes over ``SimNet`` with G rows, ``busy``
+    groups committed once at N0 (their coordinator), then N0 cut off and
+    marked dead at N1/N2 and one request proposed at N1 on each busy
+    group.  -> (ticks until N1 coordinates every busy group, ticks until
+    N1's first commit, ticks until all commit, the leg's node ticks)."""
+    from gigapaxos_tpu_torch.modeb import ModeBNode
+    from gigapaxos_tpu_torch.testing.simnet import SimNet
+
+    net = SimNet(seed=1)
+    cfg = modeb_cfg(G, window=W, fast_reelection=fast)
+    nodes = {n: ModeBNode(cfg, list(MODEB_IDS), n, _exec_count_app(),
+                          net.messenger(n), anti_entropy_every=8,
+                          device=dev) for n in MODEB_IDS}
+    names = [f"g{i}" for i in range(G)]
+    for n in nodes.values():
+        n.create_groups_bulk(names, [0, 1, 2])
+    run = _ModeBRun(nodes, net)
+    run.wave("N0", names[:busy], [f"a{i}".encode() for i in range(busy)],
+             100, tag="modeb-fast warm")
+    rows = np.array([nodes["N1"].rows.row(n) for n in names[:busy]])
+    check((nodes["N1"]._coord_view[rows] == 0).all(), "modeb-fast: N0 leads")
+    net.partition({"N0"}, {"N1", "N2"})
+    for nid in ("N1", "N2"):
+        nodes[nid].set_alive(0, False)
+    done = []
+    for i, name in enumerate(names[:busy]):
+        nodes["N1"].propose(name, f"b{i}".encode(),
+                            lambda _r, x: done.append(x))
+    t_coord = t_first = t_all = None
+    for t in range(1, 201):
+        run.spin(1, only=("N1", "N2"))
+        if t_coord is None and (nodes["N1"]._coord_view[rows] == 1).all():
+            t_coord = t
+        if t_first is None and done:
+            t_first = t
+        if len(done) == busy:
+            t_all = t
+            break
+    check(t_all is not None
+          and all(x is not None and x.startswith(b"ok:b") for x in done),
+          f"modeb-fast (fast={fast}): {len(done)} of {busy} committed")
+    return t_coord, t_first, t_all, run.node_ticks()
+
+
+def modeb_fast_leg(torch, pg, dev, G=1 << 17, busy=4096, cpu_G=256,
+                   cpu_busy=64):
+    """``modeb-fast``: the failover schedule with fast re-election off and
+    on; the fast leg must take over in 1 tick and be strictly quicker on
+    both counts, and both legs' counts must equal the same schedule's at
+    ``cpu_G`` rows on the CPU.  Each leg is a counted path: 5 gathers + 1
+    match a node tick, fast re-election on or off."""
+    out = {"G": G, "busy": busy, "W": 8}
+    launches = {}
+    for fast in (False, True):
+        pg.reset_launches()
+        t0 = time.perf_counter()
+        t_coord, t_first, t_all, nt = _fast_failover(dev, G, busy, fast)
+        wall = time.perf_counter() - t0
+        if dev.type == "cuda":
+            launches["fast" if fast else "full"] = launches_now(
+                pg, f"modeb-fast (fast={fast}), {nt} node ticks",
+                {"gather_planes": 5 * nt, "match_planes": nt})
+        cpu = _fast_failover(torch.device("cpu"), cpu_G, cpu_busy, fast)
+        check(cpu[:2] == (t_coord, t_first), f"modeb-fast (fast={fast}): "
+              f"({t_coord}, {t_first}) ticks on {dev}, {cpu[:2]} on the CPU")
+        out["fast" if fast else "full"] = {
+            "ticks_to_coordinator": t_coord, "ticks_to_first_commit": t_first,
+            "ticks_to_all_commits": t_all, "leg_s": wall,
+            "node_ticks": nt}
+    f, c = out["fast"], out["full"]
+    check(f["ticks_to_coordinator"] == 1, "modeb-fast: takeover not in 1 "
+          "tick")
+    check(f["ticks_to_coordinator"] < c["ticks_to_coordinator"]
+          and f["ticks_to_first_commit"] < c["ticks_to_first_commit"],
+          f"modeb-fast: fast {f} not quicker than full {c}")
+    out["launches"] = launches or None
+    return out
+
+
+def modeb_device_leg(torch, pg, dev, G=1 << 17, busy=4096, ticks=16):
+    """``modeb-device-128k``: three device-app nodes over ``SimNet``, one
+    PUT a tick on each of ``busy`` groups (entering at node g % 3) for
+    ``ticks`` ticks, one of them forced down the miss path at N0 (its
+    descriptor never uploads there, so N0 applies it on the host); the
+    three KV tables must be equal and every acked write read back."""
+    import struct
+
+    from gigapaxos_tpu_torch.models.device_kv import OP_GET, OP_PUT, pack_desc
+    from gigapaxos_tpu_torch.modeb import ModeBNode
+    from gigapaxos_tpu_torch.testing.simnet import SimNet
+
+    net = SimNet(seed=2)
+    reg = 4 * busy
+    cfg = modeb_cfg(G, device_app=True, kv_reg_budget=reg)
+    nodes = {n: ModeBNode(cfg, list(MODEB_IDS), n, None, net.messenger(n),
+                          anti_entropy_every=64, device=dev)
+             for n in MODEB_IDS}
+    names = [f"g{i}" for i in range(G)]
+    for n in nodes.values():
+        n.create_groups_bulk(names, [0, 1, 2])
+    run = _ModeBRun(nodes, net)
+    run.spin(4)  # elect
+    n0 = nodes["N0"]
+    scalar = {"n": 0}
+    inner_exec = n0.app.execute
+
+    def counted(name, request, rid):
+        scalar["n"] += 1
+        return inner_exec(name, request, rid)
+
+    n0.app.execute = counted
+    acked = {}
+    pg.reset_launches()
+    ticks0 = run.node_ticks()
+    t0 = time.perf_counter()
+    miss_rid = None
+    for t in range(ticks):
+        key = t % 4 + 1
+        for g in range(busy):
+            val = t * busy + g + 1
+            at = MODEB_IDS[g % 3]
+            rid = nodes[at].propose(
+                names[g], pack_desc(OP_PUT, key, val),
+                lambda _r, x, g=g, key=key, val=val: acked.__setitem__(
+                    (g, key, val), x))
+            check(rid is not None, "modeb-device: propose refused")
+            if t == ticks // 2 and g == 0:
+                miss_rid = rid
+                n0._kv_known[rid] = True  # never uploaded at N0
+        run.spin(1)
+    rounds = 0
+    while len(acked) < ticks * busy:
+        run.spin(1)
+        rounds += 1
+        check(rounds <= 200, f"modeb-device: {len(acked)} acked")
+    wall = time.perf_counter() - t0
+    run.spin(6)
+    node_ticks = run.node_ticks() - ticks0
+    launches = None
+    if dev.type == "cuda":
+        launches = launches_now(pg, f"modeb-device, {node_ticks} node ticks",
+                                {"gather_planes": 5 * node_ticks,
+                                 "match_planes": node_ticks})
+    check(miss_rid is not None and scalar["n"] >= 1,
+          "modeb-device: the miss path never ran at N0")
+    bad = [k for k, x in acked.items() if x != struct.pack("<i", k[2])]
+    check(not bad, f"modeb-device: {len(bad)} PUT responses wrong")
+    keys = [n.kv.key[0].cpu().numpy() for n in nodes.values()]
+    vals = [n.kv.val[0].cpu().numpy() for n in nodes.values()]
+    rows = [np.array([n.rows.row(x) for x in names[:busy]])
+            for n in nodes.values()]
+    for i in (1, 2):
+        check(np.array_equal(keys[0][rows[0]], keys[i][rows[i]])
+              and np.array_equal(vals[0][rows[0]], vals[i][rows[i]]),
+              f"modeb-device: {MODEB_IDS[i]}'s KV table differs from N0's")
+    # every acked write reads back: each key's last PUT is in the table
+    S = n0.kv.slots
+    last = {}
+    for (g, key, val) in acked:
+        last[(g, key)] = max(last.get((g, key), 0), val)
+    for (g, key), val in last.items():
+        r = rows[0][g]
+        check(keys[0][r, key & (S - 1)] == key
+              and vals[0][r, key & (S - 1)] == val,
+              f"modeb-device: group {g} key {key} lost its last PUT")
+    # and through consensus: a GET on a few groups
+    got = {}
+    for g in range(0, busy, max(1, busy // 16)):
+        nodes["N1"].propose(names[g], pack_desc(OP_GET, 1, 0),
+                            lambda _r, x, g=g: got.__setitem__(g, x))
+    for _ in range(40):
+        run.spin(1)
+        if len(got) == len(range(0, busy, max(1, busy // 16))):
+            break
+    for g, x in got.items():
+        check(x == struct.pack("<i", last[(g, 1)]),
+              f"modeb-device: GET on group {g} read {x!r}")
+    check(got, "modeb-device: no GET answered")
+    return {"G": G, "busy": busy, "ticks": ticks, "kv_reg_budget": reg,
+            "acked": len(acked), "drain_rounds": rounds, "s": wall,
+            "puts_per_s": len(acked) / wall,
+            "miss_path_scalar_execs_N0": scalar["n"],
+            "gets_read_back": len(got), "node_ticks": node_ticks,
+            "launches": launches}
+
+
+def modeb_phase(torch, pg, dev, G_1m=1 << 20, hot=1 << 14, laggard=1 << 16,
+                G_fast=1 << 17, busy_fast=4096, G_dev=1 << 17,
+                busy_dev=4096, dev_ticks=16, cpu_ticks=3):
+    """The three Mode B legs; each Mode B path's launches in ``launches``
+    (``modeb``: the 1M leg, the fast leg's classical half and the device
+    leg; ``modeb_fast``: the fast leg's fast half)."""
+    t0 = time.perf_counter()
+    out = {"modeb-1M": modeb_1m_leg(torch, pg, dev, G_1m, hot=hot,
+                                    laggard=laggard, cpu_ticks=cpu_ticks)}
+    out["modeb-fast"] = modeb_fast_leg(torch, pg, dev, G_fast, busy_fast)
+    out["modeb-device-128k"] = modeb_device_leg(torch, pg, dev, G_dev,
+                                                busy_dev, dev_ticks)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------ profile (opt-in)
 
 def profile_tick(torch, dev, R, W, P, G, exec_budget, lag_budget=1024,
@@ -2396,7 +2911,10 @@ def main(argv=None) -> int:
         # the replay path: both legs' batched recoveries
         launches["replay"] = {k: dense["launches"][k] + sparse["launches"][k]
                               for k in dense["launches"]}
-        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=2048)
+        # depth cut: at 2,048 names and 256 serial requests, the whole run
+        # with the modeb phase took up to 1,024.7 s on an H100 (700 W)
+        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=1024,
+                            serial=128)
         clu["card"] = card
         launches["cluster"] = clu["launches"]
         print("cluster " + json.dumps(clu), flush=True)
@@ -2416,12 +2934,17 @@ def main(argv=None) -> int:
         try:
             kvp = device_kv_phase(torch, pg, dev, work,
                                   manager_dps=mgr["dec_per_s"])
-            chp = chain_phase(torch, pg, dev, work)
+            chp = chain_phase(torch, pg, dev, work, n_names=128)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         for leg, res in list(kvp.items()) + list(chp.items()):
             res["card"] = card
             print(leg + " " + json.dumps(res), flush=True)
+        mbp = modeb_phase(torch, pg, dev)
+        for leg in ("modeb-1M", "modeb-fast", "modeb-device-128k"):
+            mbp[leg]["card"] = card
+            print(leg + " " + json.dumps(mbp[leg]), flush=True)
+        print(f"modeb phase {mbp['phase_s']:.1f} s", flush=True)
 
         def total(*runs):
             return {k: sum(r[k] for r in runs) for k in launches["tick"]}
@@ -2436,6 +2959,13 @@ def main(argv=None) -> int:
         launches["chain"] = total(chp["chain-1M"]["launches"],
                                   chp["chain-128k"]["launches"])
         launches["chain_cluster"] = chp["chain-cluster"]["launches"]
+        # Mode B: every node tick of the 1M leg, the classical failover
+        # leg and the device-app leg; the fast failover leg on its own
+        launches["modeb"] = total(
+            mbp["modeb-1M"]["launches"],
+            mbp["modeb-fast"]["launches"]["full"],
+            mbp["modeb-device-128k"]["launches"])
+        launches["modeb_fast"] = mbp["modeb-fast"]["launches"]["fast"]
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)

@@ -83,6 +83,18 @@ def init_state(n_replicas: int, n_groups: int, window: int,
     )
 
 
+def expand_replica_slots(state: ChainState, n_new: int) -> ChainState:
+    """Grow the replica axis by ``n_new`` virgin slots (runtime node
+    addition — see ``paxos.state.expand_replica_slots``)."""
+    from ..paxos.state import concat_replica_slots
+
+    if n_new <= 0:
+        return state
+    return concat_replica_slots(
+        state, init_state(n_new, state.n_groups, state.window,
+                          device=state.applied.device))
+
+
 def _rows(rows, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(rows, np.int64), device=dev)
 

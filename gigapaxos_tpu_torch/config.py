@@ -1,11 +1,11 @@
-"""Config sections the Mode A manager and its control plane read.
+"""Config sections the Mode A and Mode B managers and the control plane
+read.
 
 Copies of the reference's tuning dataclasses, with the same fields and the
 same defaults, so one set of settings configures either package.  Options
-whose planes have not been ported yet (register groups, leases, the health
-plane, the device app, the mesh, fast re-election, placement)
-keep their fields: the manager raises ``NotImplementedError`` when one is
-set, instead of ignoring it.
+whose planes have not been ported yet (the mesh, placement) keep their
+fields: the manager raises ``NotImplementedError`` when one is set,
+instead of ignoring it.
 """
 
 from __future__ import annotations

@@ -25,8 +25,15 @@ from .metrics import METRICS_ENABLED, Histogram, Registry, registry
 # driver name -> the phases its tick marks
 DRIVER_PHASES: Dict[str, Tuple[str, ...]] = {
     # paxos/manager.py PaxosManager.tick/_complete_tick
-    "modea": ("repair", "intake", "dispatch", "tally", "execute",
-              "egress", "sweep"),
+    "modea": ("repair", "intake", "dispatch", "wal_fsync",
+              "tally", "execute", "egress", "sweep"),
+    # modeb/manager.py ModeBNode.tick (ring_relay: the one-downstream-send
+    # payload dissemination hop that replaces payload fan-out under
+    # cfg.paxos.ring_dissemination)
+    "modeb": ("ingress", "intake", "dispatch", "wal_fsync",
+              "tally", "execute", "outbox_pack", "egress", "ring_relay"),
+    # chain/manager.py ChainManager.tick
+    "chain": ("intake", "dispatch", "wal_fsync", "tally", "execute"),
 }
 
 #: The extra phase recorded only under cfg.obs.blocking_phases.

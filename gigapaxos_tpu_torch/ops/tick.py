@@ -13,7 +13,9 @@ broadcast over the leading replica axis.  All ring windows are
 ``window.gather_planes_many`` and intake placement through
 ``window.match_planes_many``, which launch the hand-written CUDA kernels for
 CUDA tensors (``ops/plane_gather.py``).  The arrays that share an index are
-gathered in one call: five gathers and one match per tick.
+gathered in one call: five gathers and one match per tick, with or without
+fast re-election (its four extra window-to-ring reads ride the carryover's
+launch).
 
 ``inbox.alive`` is the failure detector's liveness view.  A dead replica
 contributes nothing and its state freezes; flipping it back alive models
@@ -34,8 +36,8 @@ intermediate keeps the int32 wraparound arithmetic the slot and ballot
 comparisons rely on.  The tick never writes its input state: it returns
 fresh tensors.
 
-Fast re-election (Mode B) and a sharded group axis (the mesh) are not
-ported; those options raise ``NotImplementedError``.
+A sharded group axis (the mesh) is not ported; that option raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -305,13 +307,23 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     own_row: -1 for Mode A (all rows authoritative).  ``>= 0`` confines
     every state transition to that row (Mode B peer rows are mirrors).
 
+    fast_elect: consecutive-ballot fast re-election.  Off, the tick is the
+    classical election path, op for op.  On, three coupled rules apply:
+    a candidate whose promised ballot already equals the group maximum
+    over member rows takes over at the successor ballot without a prepare
+    round (``coord_fast``), seeding its proposals from every member row's
+    accepted window; an acceptor refuses a fast push that would overwrite a
+    different accepted value (the refusal still raises its promise); and a
+    fast coordinator that sees a higher-ballot accepted value differing
+    from its proposal adopts it and bumps its ballot by one.  A refusal
+    the coordinator can prove from its mirrors demotes it to a full
+    prepare at the next ballot.  Either way a tick launches 5 gathers and
+    1 match: the four ring reads of the adoption rule share the
+    carryover's index and go in its launch (8 arrays).
+
     lease_horizon: ticks a grant or renewal keeps the lease valid.
     wedge_ticks / health_decay_shift / health_topk: the health fold's
     wedge threshold, EWMA decay and top-K width."""
-    if fast_elect:
-        raise NotImplementedError(
-            "fast_elect (consecutive-ballot re-election) comes with the "
-            "Mode B slice of the port")
     if group_axis is not None:
         raise NotImplementedError(
             "a sharded group axis comes with the mesh slice of the port")
@@ -367,14 +379,26 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     have_auth = (state.coord_active | state.coord_preparing) & bal_ge(
         state.coord_bnum, r_idx, state.bal_num, state.bal_coord
     )
-    start_prep = im_cand & coord_dead & ~have_auth & own2
+    start_any = im_cand & coord_dead & ~have_auth & own2
+    if fast_elect:
+        # consecutive-ballot takeover: my promise is already the group max
+        # over member rows (mirrors only ever under-report), so the ballot
+        # below is the predecessor's immediate successor: skip prepare
+        gmax_bn = torch.where(member, state.bal_num, NEG_INF).amax(dim=0)
+        consec = (state.bal_num == gmax_bn[None, :]) & (
+            state.bal_num >= state.coord_bnum)
+        fast_start = start_any & consec
+        start_prep = start_any & ~consec
+    else:
+        start_prep = start_any
     coord_bnum = torch.where(
-        start_prep,
+        start_any,
         torch.maximum(state.bal_num, state.coord_bnum) + 1,
         state.coord_bnum,
     )
     coord_preparing = state.coord_preparing | start_prep
     coord_active = state.coord_active
+    coord_fast = state.coord_fast
 
     # ---------------- phase 1: prepare / promise / carryover ----------------
     prep_mask = coord_preparing & acc_ok
@@ -389,6 +413,10 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     )
     bal_num = torch.where(upgrade, best_pn[None, :], state.bal_num)
     bal_coord = torch.where(upgrade, best_pc[None, :], state.bal_coord)
+    if fast_elect:
+        # a fast winner promises its own new ballot at once
+        bal_num = torch.where(fast_start, coord_bnum, bal_num)
+        bal_coord = torch.where(fast_start, r_full, bal_coord)
 
     # promise match[r1, r2, g]: acceptor r2's promised ballot == candidate r1's
     match = (
@@ -408,7 +436,23 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
 
     # carryover: among the winner's promisers, max-ballot accepted pvalue
     promiser = (won[:, None, :] & match).any(dim=0)  # [R, G]
-    eff = promiser[:, None, :] & acc_here
+    if fast_elect:
+        # a fast winner has no promisers: its carryover source is every
+        # member row of its mirrors (a stale mirror under-reports, which
+        # only shortens the seeded prefix)
+        fast_any = fast_start.any(dim=0)  # [G]
+        sel_rows = torch.where(fast_any[None, :], member, promiser)
+        eff = sel_rows[:, None, :] & acc_here
+        # the adoption rule's source (phase 2a): the max-ballot accepted
+        # pvalue per window slot over member rows, pre-tick facts only
+        vis = member[:, None, :] & acc_here
+        m_n, m_c = _lexmax(torch.where(vis, a_bnum, NEG_INF), a_bcoord,
+                           dim=0)
+        m_sel = vis & (a_bnum == m_n[None]) & (a_bcoord == m_c[None])
+        m_req = torch.where(m_sel, a_req, 0).amax(dim=0)  # [W, G]
+        m_stop = (m_sel & a_stop).any(dim=0)
+    else:
+        eff = promiser[:, None, :] & acc_here
     c_n, c_c = _lexmax(torch.where(eff, a_bnum, NEG_INF), a_bcoord, dim=0)
     c_exists = eff.any(dim=0)
     sel = eff & (a_bnum == c_n[None]) & (a_bcoord == c_c[None])
@@ -416,21 +460,42 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     c_stop = (sel & a_stop).any(dim=0)
     # noop-fill gaps below the highest carried slot so later slots commit
     hi = torch.where(c_exists, jw, -1).amax(dim=0)  # [G], -1 if none
-    ns_win = base + hi + 1
-    c_valid = jw <= hi[None, :]  # [W, G] window order
+    if fast_elect:
+        # a fast winner also covers the predecessor's visible assignment
+        # frontier (max member next_slot), capped at the ring's capacity:
+        # slots assigned but unseen get noop proposals instead of gaps
+        next_mem = torch.where(member, state.next_slot, NEG_INF).amax(dim=0)
+        fast_next = torch.minimum(torch.maximum(base + hi + 1, next_mem),
+                                  base + W)  # [G]
+        hi_eff = torch.where(fast_any, fast_next - base - 1, hi)
+        ns_win = torch.where(fast_any, fast_next, base + hi + 1)
+        c_valid = jw <= hi_eff[None, :]
+    else:
+        ns_win = base + hi + 1
+        c_valid = jw <= hi[None, :]  # [W, G] window order
     # window order -> ring order: ring plane i holds window offset (i-base)%W
     j_of_i = torch.bitwise_and(jw - base[None, :], Wm)  # [W, G]
-    co_req, co_stop, co_valid, co_slot = window.gather_planes_many(
-        (c_req, c_stop, c_valid, s_j), j_of_i)
-    won3 = won[:, None, :]
+    if fast_elect:
+        # the adoption rule's four ring reads share j_of_i: one launch
+        (co_req, co_stop, co_valid, co_slot, ad_req, ad_stop, ad_n,
+         ad_c) = window.gather_planes_many(
+            (c_req, c_stop, c_valid, s_j, m_req, m_stop, m_n, m_c), j_of_i)
+        won_any = won | fast_start
+    else:
+        co_req, co_stop, co_valid, co_slot = window.gather_planes_many(
+            (c_req, c_stop, c_valid, s_j), j_of_i)
+        won_any = won
+    won3 = won_any[:, None, :]
     prop_req = torch.where(won3, co_req[None], state.prop_req)
     prop_slot = torch.where(won3, co_slot[None], state.prop_slot)
     prop_valid = torch.where(won3, co_valid[None], state.prop_valid)
     prop_stop = torch.where(won3, co_stop[None], state.prop_stop)
-    next_slot = torch.where(won, ns_win[None, :], state.next_slot)
+    next_slot = torch.where(won_any, ns_win[None, :], state.next_slot)
 
-    coord_active = coord_active | won
+    coord_active = coord_active | won_any
     coord_preparing = coord_preparing & ~won
+    if fast_elect:
+        coord_fast = (coord_fast | fast_start) & ~won
     # retirement: somebody holds a promise above my ballot (preemption)
     pm_n, pm_c = _lexmax(
         torch.where(acc_ok, bal_num, NEG_INF),
@@ -438,6 +503,8 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     retire = bal_gt(pm_n[None, :], pm_c[None, :], coord_bnum, r_idx)
     coord_active = coord_active & ~retire
     coord_preparing = coord_preparing & ~retire
+    if fast_elect:
+        coord_fast = coord_fast & ~retire
     prop_valid = prop_valid & ~retire[:, None, :]
 
     # ---------------- phase 2a: intake + slot assignment ----------------
@@ -491,6 +558,30 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
 
     intake_taken = taken_flat.reshape(R, P, G)
 
+    if fast_elect:
+        # fast-coordinator adoption + consecutive bump: a proposal seeded
+        # from stale mirrors may conflict with a higher-ballot accepted
+        # value visible now.  Adopt the max-ballot accepted value strictly
+        # below my ballot where it differs, and bump my ballot by one per
+        # affected group (two values under one ballot would corrupt the
+        # per-ballot tally; +1 keeps the reign consecutive, hence fast).
+        # The window slot of ring plane i is to_ring(s_j) = co_slot.
+        fastc = coord_fast & coord_active & own2  # [R, G]
+        below = bal_gt(coord_bnum[:, None, :], r_idx[:, :, None],
+                       ad_n[None], ad_c[None])
+        adoptp = (
+            fastc[:, None, :]
+            & prop_valid
+            & (ad_n[None] != NEG_INF)
+            & (prop_slot == co_slot[None])
+            & below
+            & (prop_req != ad_req[None])
+        )
+        prop_req = torch.where(adoptp, ad_req[None], prop_req)
+        prop_stop = torch.where(adoptp, ad_stop[None], prop_stop)
+        any_adopt = adoptp.any(dim=1)  # [R, G]
+        coord_bnum = torch.where(any_adopt, coord_bnum + 1, coord_bnum)
+
     # ---------------- phase 2b: accept ----------------
     pushing = (coord_active & acc_ok)[:, None, :] & prop_valid  # [R, W, G]
     cand_n = torch.where(pushing, coord_bnum[:, None, :], NEG_INF)
@@ -512,6 +603,22 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         & acc_ok[:, None, :]
         & own2[:, :, None]
     )
+    if fast_elect:
+        # conflict refusal: a push under a fast ballot never overwrites a
+        # DIFFERENT accepted value (the fast reign collected no promises);
+        # the refusal still promises, so the coordinator can prove it
+        src_fast = (psel & coord_fast[:, None, :]).any(dim=0)  # [W, G]
+        conflict = (
+            (state.acc_slot == p_slot[None])
+            & (state.acc_bnum >= 0)
+            & (state.acc_req != p_req[None])
+            & src_fast[None]
+        )  # [R, W, G]
+        refused = acceptable & conflict
+        acceptable = acceptable & ~conflict
+        pr_mask = acceptable | refused
+    else:
+        pr_mask = acceptable
     # a pvalue for slot p_slot sits on its own ring plane already
     # (proposals are ring-indexed by slot), so accept in place
     acc_bnum = torch.where(acceptable, b_n[None], state.acc_bnum)
@@ -521,11 +628,30 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     acc_stop = torch.where(acceptable, p_stop[None], state.acc_stop)
     # promise-on-accept (accepting raises the promised ballot)
     ab_n, ab_c = _lexmax(
-        torch.where(acceptable, b_n[None], NEG_INF),
-        torch.where(acceptable, b_c[None], NEG_INF), dim=1)  # [R, G]
+        torch.where(pr_mask, b_n[None], NEG_INF),
+        torch.where(pr_mask, b_c[None], NEG_INF), dim=1)  # [R, G]
     raise_p = (ab_n != NEG_INF) & bal_gt(ab_n, ab_c, bal_num, bal_coord)
     bal_num = torch.where(raise_p, ab_n, bal_num)
     bal_coord = torch.where(raise_p, ab_c, bal_coord)
+    if fast_elect:
+        # liveness escape: a refusal PROVEN in my mirrors (a member's
+        # promise at/above my pushed ballot while a conflicting lower
+        # value stays accepted) demotes me to a full prepare at the next
+        # ballot, which is always safe
+        seen_refusal = (
+            conflict
+            & member[:, None, :]
+            & bal_ge(bal_num[:, None, :], bal_coord[:, None, :],
+                     b_n[None], b_c[None])
+        )
+        ref_plane = seen_refusal.any(dim=0)  # [W, G]
+        mine = b_c[None] == r_idx[:, :, None]  # [R, W, G] my push planes
+        demote = (coord_fast & coord_active & own2
+                  & (ref_plane[None] & mine).any(dim=1))
+        coord_active = coord_active & ~demote
+        coord_fast = coord_fast & ~demote
+        coord_preparing = coord_preparing | demote
+        coord_bnum = torch.where(demote, coord_bnum + 1, coord_bnum)
 
     # ---------------- phase 2c: tally + quorum ----------------
     (A_bnum, A_bcoord, A_req, A_slot, A_stop, D_slot,
@@ -630,7 +756,8 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         dec_stop=fr3(dec_stop, state.dec_stop),
         coord_active=fr2(coord_active, state.coord_active),
         coord_preparing=fr2(coord_preparing, state.coord_preparing),
-        coord_fast=state.coord_fast.clone(),
+        coord_fast=(fr2(coord_fast, state.coord_fast) if fast_elect
+                    else state.coord_fast.clone()),
         coord_bnum=fr2(coord_bnum, state.coord_bnum),
         next_slot=fr2(next_slot, state.next_slot),
         prop_req=fr3(prop_req, state.prop_req),
@@ -790,20 +917,23 @@ def _host(flat) -> np.ndarray:
 
 
 def paxos_tick_packed(state, inbox: TickInbox, own_row: int = -1,
-                      exec_budget: int = 0):
+                      exec_budget: int = 0, fast_elect: bool = False):
     """Tick + full outbox packed into one int32 buffer."""
     res = paxos_tick_health(state, None, None, None, None, None, inbox,
-                            own_row, exec_budget, 0, 0, False)
+                            own_row, exec_budget, 0, 0, False,
+                            fast_elect=fast_elect)
     return res[0], res[6]
 
 
 def paxos_tick_packed_lease(state, lease: LeaseState, inbox: TickInbox,
                             own_row: int = -1, exec_budget: int = 0,
-                            lease_horizon: int = 0):
+                            lease_horizon: int = 0,
+                            fast_elect: bool = False):
     """Lease twin of :func:`paxos_tick_packed`: also returns the new
     :class:`LeaseState` and the [5, G] lease pack."""
     res = paxos_tick_health(state, None, lease, None, None, None, inbox,
-                            own_row, exec_budget, 0, lease_horizon, False)
+                            own_row, exec_budget, 0, lease_horizon, False,
+                            fast_elect=fast_elect)
     return res[0], res[2], res[6], res[8]
 
 
@@ -910,21 +1040,23 @@ def _compact_outbox_impl(out: TickOutbox, exec_budget: int,
 
 
 def paxos_tick_compact(state, inbox: TickInbox, own_row: int,
-                       exec_budget: int, lag_budget: int):
+                       exec_budget: int, lag_budget: int,
+                       fast_elect: bool = False):
     """Tick + budgeted on-device compaction: one O(budget) buffer."""
     res = paxos_tick_health(state, None, None, None, None, None, inbox,
-                            own_row, exec_budget, lag_budget, 0, True)
+                            own_row, exec_budget, lag_budget, 0, True,
+                            fast_elect=fast_elect)
     return res[0], res[6]
 
 
 def paxos_tick_compact_lease(state, lease: LeaseState, inbox: TickInbox,
                              own_row: int, exec_budget: int, lag_budget: int,
-                             lease_horizon: int):
+                             lease_horizon: int, fast_elect: bool = False):
     """Lease twin of :func:`paxos_tick_compact`: the O(budget) compact
     buffer plus the O(G) lease pack."""
     res = paxos_tick_health(state, None, lease, None, None, None, inbox,
                             own_row, exec_budget, lag_budget, lease_horizon,
-                            True)
+                            True, fast_elect=fast_elect)
     return res[0], res[2], res[6], res[8]
 
 
@@ -1031,7 +1163,8 @@ def paxos_tick_health(state, rstate, lease, rlease, health, rhealth,
                       inbox: TickInbox, own_row: int, exec_budget: int,
                       lag_budget: int, lease_horizon: int, compact: bool,
                       wedge_ticks: int = 32, decay_shift: int = 6,
-                      topk: int = 8, scat_budget: int = None):
+                      topk: int = 8, scat_budget: int = None,
+                      fast_elect: bool = False):
     """The one dispatch body of every tick entry point: ticks the log
     plane (and the register plane when ``rstate`` is given), folds the
     lease columns when ``lease`` is given and the health columns when
@@ -1042,12 +1175,14 @@ def paxos_tick_health(state, rstate, lease, rlease, health, rhealth,
     rhealth, out_l, out_r, lp_l, lp_r, hp_l, hp_r)`` with ``None`` in every
     absent position.  The per-plane top-K is ``min(topk, G_plane)``; the
     host unpacks with the same clamp.  ``scat_budget`` sizes the compact
-    buffer when it differs from the exec budget (batched replay)."""
+    buffer when it differs from the exec budget (batched replay).
+    ``fast_elect`` switches on fast re-election (see :func:`paxos_tick_impl`)
+    in every plane."""
     scat = exec_budget if scat_budget is None else scat_budget
 
     def plane(st, ib, le, he, k):
         res = paxos_tick_impl(
-            st, ib, own_row, exec_budget, lease=le,
+            st, ib, own_row, exec_budget, fast_elect=fast_elect, lease=le,
             lease_horizon=lease_horizon, health=he, wedge_ticks=wedge_ticks,
             health_decay_shift=decay_shift, health_topk=k)
         st2, out, rest = res[0], res[1], list(res[2:])

@@ -68,7 +68,7 @@ class PaxosState(NamedTuple):
     # ---- coordinator, per replica [R, G] ----
     coord_active: torch.Tensor  # bool: majority promised my ballot
     coord_preparing: torch.Tensor  # bool: prepare issued, awaiting promises
-    coord_fast: torch.Tensor  # bool: active via fast election (never set here)
+    coord_fast: torch.Tensor  # bool: active via fast re-election (Mode B)
     coord_bnum: torch.Tensor  # my ballot number (coordinator id == replica idx)
     next_slot: torch.Tensor  # next slot I will assign
 
@@ -142,6 +142,42 @@ def init_state(n_replicas: int, n_groups: int, window: int,
         epoch=full((G,), 0, I32),
     )
     return PaxosState(**fields)
+
+
+def concat_replica_slots(state, fresh):
+    """Append ``fresh``'s virgin replica rows to ``state`` (both the same
+    NamedTuple type): every field whose leading dim is the replica axis is
+    concatenated; per-group config state ([G]) is shared, not copied.  The
+    leading-dim test is by ndim (>= 2) — a protocol state with a 2-D
+    [G, *] field would need this extended.  Shared by the paxos and chain
+    expanders (runtime node addition)."""
+    R = state[0].shape[0]
+    merged = {}
+    for f in state._fields:
+        a, b = getattr(state, f), getattr(fresh, f)
+        if a.dim() >= 2 and a.shape[0] == R:
+            merged[f] = torch.cat([a, b], dim=0)
+        else:
+            # only 1-D per-group config may skip the concatenation: a 2-D
+            # [G, *] field whose leading dim happened to equal R would be
+            # concatenated on the wrong axis without a word
+            assert a.dim() == 1, (
+                f"{f}: shape {tuple(a.shape)} is neither replica-led nor "
+                "1-D per-group config — extend concat_replica_slots")
+            merged[f] = a
+    return type(state)(**merged)
+
+
+def expand_replica_slots(state: PaxosState, n_new: int) -> PaxosState:
+    """Grow the replica axis by ``n_new`` virgin slots (runtime node
+    addition).  Existing slots keep their indices (new nodes append), new
+    rows hold :func:`init_state`'s values, and no group membership changes:
+    groups adopt the new slots through ordinary epoch reconfiguration."""
+    if n_new <= 0:
+        return state
+    return concat_replica_slots(
+        state, init_state(n_new, state.n_groups, state.window,
+                          device=state.device))
 
 
 def clone_state(state: PaxosState) -> PaxosState:

@@ -24,8 +24,16 @@ def test_import_loads_no_jax_and_no_reference_module():
     for m in ("paxos.manager", "net.transport", "protocoltask.executor",
               "reconfiguration.active_replica", "node", "client",
               "obs.flight", "models.device_kv", "chain", "chain.tick",
-              "chain.manager", "wal.chain_logger"):
+              "chain.manager", "wal.chain_logger", "modeb", "modeb.kernel",
+              "modeb.manager", "modeb.wire", "modeb.common",
+              "testing.simnet"):
         assert f"gigapaxos_tpu_torch.{m}" in mods
+    assert _loaded_reference_modules(mods) == ""
+
+
+def _loaded_reference_modules(mods) -> str:
+    """Import ``mods`` in a fresh interpreter; the jax and reference
+    modules it then holds, comma-separated."""
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -39,7 +47,14 @@ def test_import_loads_no_jax_and_no_reference_module():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "", out.stdout
+    return out.stdout.strip()
+
+
+def test_modeb_and_simnet_alone_load_no_jax():
+    """The Mode B package and the simulated wire, imported on their own."""
+    assert _loaded_reference_modules(
+        ["gigapaxos_tpu_torch.modeb",
+         "gigapaxos_tpu_torch.testing.simnet"]) == ""
 
 
 IMPORT_RE = re.compile(
