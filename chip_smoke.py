@@ -82,8 +82,18 @@ the kernels are built for sm_90a).  It
    leg takes over in 1 tick and is quicker; both counts equal a small run
    on the CPU).  ``modeb-device-128k`` runs three device-app nodes over
    ``SimNet``: 4,096 PUTs a tick for 16 ticks, one forced down the miss
-   path; equal KV tables, every acked write read back.  Every node tick,
-   fast re-election on or off, must launch 5 gathers and 1 match.
+   path; equal KV tables, every acked write read back.
+   ``modeb-wal-128k`` makes three loopback nodes of 2^17 groups durable
+   (``ModeBLogger`` on the native journal, an fsync a tick, a forced
+   checkpoint): a hot wave of 2^14 PUTs, N2 crashed, 2^12 PUTs while it is
+   down, its recovery (``recover_modeb`` with a ``PeerCheckpointStreamer``)
+   to a replayed state equal to its pre-crash copy field by field, a
+   second crash with a flipped byte in its journal and a degraded
+   recovery (quarantine, taint, repair), then a ``SimChaosRunner``
+   coordinator crash on three durable nodes with real restarts; every
+   acked write reads back on every node.  Every node tick, fast
+   re-election on or off, live or replayed, must launch 5 gathers and 1
+   match.
 
 The kernels phase also holds both kernels against their plain versions at
 the narrow widths sparse replay gives them (A=8 groups, W=4), at the
@@ -110,6 +120,7 @@ import argparse
 import glob
 import json
 import os
+import random
 import shutil
 import statistics
 import subprocess
@@ -359,7 +370,8 @@ def path_launches(pg, path: str, n_ticks: int, planes: int = 1) -> dict:
 #: kernels: the recovery-1M-sparse leg's 8 active groups at W=4 (sparse
 #: replay), the 128k deployment at P=2 (the manager phase, the durable
 #: manager and its dense replay), and the cluster's two 2^20-row planes at
-#: the default W=4, P=4 (5 actives, 3 reconfigurators)
+#: the default W=4, P=4 (5 actives, 3 reconfigurators); the 2^17-row W=4
+#: P=4 shape is also every live and replayed node tick of modeb-wal-128k
 PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
                (3, 8, 1 << 17, 2, "replay/manager 128k: "),
                (5, 4, 1 << 20, 4, "cluster AR R=5 W=4: "),
@@ -368,7 +380,8 @@ PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
                (3, 1, 917_504, 1, "mixed reg W=1 P=1: "),
                (3, 8, 1 << 17, 4, "reads log 128k P=4: "),
                (3, 1, 1 << 17, 4, "reads reg W=1 128k P=4: "),
-               (3, 4, 1 << 17, 4, "chain cluster RC R=3 W=4 128k: "))
+               (3, 4, 1 << 17, 4, "chain cluster RC, modeb-wal and its "
+                "replay R=3 W=4 128k: "))
 
 #: (R, W, G, label prefix) of the chain tick's one gather launch: its three
 #: rings over the per-replica window index, at chain-1M, chain-128k and the
@@ -2765,18 +2778,574 @@ def modeb_device_leg(torch, pg, dev, G=1 << 17, busy=4096, ticks=16):
             "launches": launches}
 
 
+# ------------------------------------------------- Mode B durability leg
+
+def _journal_tally(wal, tally):
+    """Count the bytes of every record ``wal`` appends by op (a record is
+    a ``records`` tuple: tag, u32 count, then its first item, the op, as
+    ``'i'`` + int64, so byte 6 is the op)."""
+    inner = wal._append
+
+    def counted(rec, _inner=inner):
+        tally[rec[6]] = tally.get(rec[6], 0) + len(rec)
+        _inner(rec)
+
+    wal._append = counted
+
+
+def _timed(obj, name, samples):
+    """Wrap ``obj.name`` to append each call's wall milliseconds."""
+    inner = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **kw)
+        finally:
+            samples.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, name, timed)
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[int(q * (len(xs) - 1))] if xs else None
+
+
+class _Launches:
+    """Launch counts of one main path read in segments: each segment sets
+    the counts to 0 before it runs and adds them after, against 5 gathers
+    + 1 match per node tick of the segment."""
+
+    def __init__(self, pg, on):
+        self.pg, self.on = pg, on
+        self.got = {"gather_planes": 0, "match_planes": 0}
+        self.ticks = 0
+
+    def begin(self):
+        self.pg.reset_launches()
+
+    def end(self, what, node_ticks):
+        if not self.on:
+            return
+        launches_now(self.pg, what, {"gather_planes": 5 * node_ticks,
+                                     "match_planes": node_ticks})
+        for k in self.got:
+            self.got[k] += self.pg.launches[k]
+        self.ticks += node_ticks
+        self.pg.reset_launches()
+
+    def result(self):
+        return dict(self.got) if self.on else None
+
+
+class _ReplayProbe:
+    """Times the replay's packed-outbox copy (``unpack_node_tick`` is the
+    replay's one device-to-host copy a tick) and counts replayed ticks."""
+
+    def __init__(self, torch, dev):
+        from gigapaxos_tpu_torch.modeb import logger as mlog
+
+        self.mlog, self.inner = mlog, mlog.unpack_node_tick
+        self.sync = (torch.cuda.synchronize if dev.type == "cuda"
+                     else (lambda: None))
+        self.copy_ms = []
+
+    def __enter__(self):
+        def timed(flat, *a):
+            self.sync()
+            t0 = time.perf_counter()
+            host = flat.cpu()
+            self.copy_ms.append((time.perf_counter() - t0) * 1e3)
+            return self.inner(host, *a)
+
+        self.mlog.unpack_node_tick = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mlog.unpack_node_tick = self.inner
+
+
+def _same_state(a_np, b_np, what):
+    from gigapaxos_tpu_torch.paxos import state as st
+
+    for f, a, b in zip(st.PaxosState._fields, a_np, b_np):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"{what}: field {f} differs from the pre-crash copy")
+
+
+def _read_back(nodes, acked, what):
+    """Every acked PUT (group, key) -> value reads back from each node's
+    KVApp."""
+    for nid, n in nodes.items():
+        db = n.app.db
+        bad = [k for k, v in acked.items() if db.get(k[0], {}).get(k[1]) != v]
+        check(not bad, f"{what}: {len(bad)} acked writes missing at {nid} "
+              f"(e.g. {bad[:3]})")
+
+
+def _chaos_traffic(chaos, sched, n=9, every=25, start=5):
+    """``tests/test_chaos.py:49``'s ``with_traffic``: ``n`` PUTs on group
+    ``svc`` entering at the nodes in turn."""
+    sched.events = sched.events + [
+        chaos.ChaosEvent(start + i * every, "propose",
+                         {"node": MODEB_IDS[i % 3], "group": "svc",
+                          "payload": f"PUT k{i} v{i}"})
+        for i in range(n)]
+    return sched
+
+
+def _modeb_wal_chaos(torch, dev, G, groups, work, ticks, ae, live_l,
+                     replay_l, probe, gap):
+    """The leg's chaos run and degraded recovery: three durable nodes of G
+    rows on ``SimNet``, with
+    ``groups`` groups (a depth cut: the blanket taint of a degraded
+    recovery journals one record, and one fsync, per group).  First the
+    chaos run: ``coordinator_crash("N0", 30, 160)`` with traffic, where
+    ``recover`` rebuilds N0 with ``recover_modeb`` (its replayed ticks
+    are the ``modeb_replay`` path); then N2 crashes, the others commit one
+    PUT on each of ``gap`` groups, one byte in the fsynced region of N2's
+    newest journal flips, and N2 recovers degraded: the journal
+    quarantined byte for byte, every row tainted, then repaired by
+    checkpoint transfers as the nodes tick."""
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.modeb import ModeBLogger, ModeBNode
+    from gigapaxos_tpu_torch.modeb import recover_modeb
+    from gigapaxos_tpu_torch.testing import chaos, faultdisk
+    from gigapaxos_tpu_torch.testing.simnet import SimNet
+    from gigapaxos_tpu_torch.wal.journal import scan_journal
+
+    net = SimNet(seed=0)
+    cfg = modeb_cfg(G)
+    dirs = {n: os.path.join(work, "chaos", n) for n in MODEB_IDS}
+    live = {"ticks": 0}
+
+    def counted(n):
+        inner = n.tick
+
+        def tick():
+            live["ticks"] += 1
+            return inner()
+
+        n.tick = tick
+        return n
+
+    nodes = {n: counted(ModeBNode(cfg, list(MODEB_IDS), n, KVApp(),
+                                  net.messenger(n),
+                                  wal=ModeBLogger(dirs[n], native=True),
+                                  anti_entropy_every=ae, device=dev))
+             for n in MODEB_IDS}
+    names = ["svc"] + [f"g{i}" for i in range(1, groups)]
+    for n in nodes.values():
+        check(n.create_groups_bulk(names, [0, 1, 2]) == groups,
+              "modeb-wal chaos: bulk create")
+        # a deployment past its first checkpoint: recovery reads the
+        # snapshot instead of replaying every create one by one
+        n.wal.checkpoint()
+
+    def recover(nid, **kw):
+        live_l.end("modeb-wal chaos live ticks", live["ticks"])
+        live["ticks"] = 0
+        before = len(probe.copy_ms)
+        t0 = time.perf_counter()
+        n = recover_modeb(cfg, list(MODEB_IDS), nid, KVApp(), dirs[nid],
+                          native=True, device=dev, **kw)
+        secs = time.perf_counter() - t0
+        replayed = len(probe.copy_ms) - before
+        replay_l.end(f"modeb-wal replay of {nid}", replayed)
+        n.attach_messenger(net.messenger(nid))
+        return counted(n), replayed, secs
+
+    replay = {}
+
+    def restart(nid):
+        n, replay["ticks"], replay["s"] = recover(nid)
+        return n
+
+    sched = _chaos_traffic(chaos, chaos.coordinator_crash(
+        "N0", crash_at=30, recover_at=160))
+    runner = chaos.SimChaosRunner(net, nodes, sched, wal_dirs=dirs,
+                                  restart=restart)
+    live_l.begin()
+    t0 = time.perf_counter()
+    runner.run(ticks)
+    drain = 0
+    while True:  # the recovered coordinator catches up on what it missed
+        dbs = [runner.nodes[n].app.db for n in MODEB_IDS]
+        if dbs[0] == dbs[1] == dbs[2]:
+            break
+        drain += 1
+        check(drain <= 400, f"modeb-wal chaos: DBs differ after {drain} "
+              "drain ticks")
+        runner.run(1)
+    runner.ledger.assert_safe()
+    ok = [p for p in runner.proposals if p["resp"] == "OK"]
+    check(len(ok) >= 7, f"modeb-wal chaos: {len(ok)} of 9 proposals OK")
+    rec = [r for r in runner.log.records if r["action"] == "recover"]
+    check(rec and rec[0].get("info") == {"recovered_degraded": False},
+          f"modeb-wal chaos: recover record {rec}")
+    out = {"rows": G, "groups": groups, "ticks": ticks, "drain_ticks": drain,
+           "s": time.perf_counter() - t0, "proposals_ok": len(ok),
+           "ledger_observations": runner.ledger.observations,
+           "replayed_ticks": replay["ticks"], "replay_s": replay["s"]}
+    acked = {("svc", p["payload"].split()[1]): p["payload"].split()[2]
+             for p in ok}
+
+    # ---- N2 crashes and its journal is scribbled: a degraded recovery
+    nodes = runner.nodes
+
+    def spin(only=MODEB_IDS):
+        for m in only:
+            nodes[m].tick()
+        net.pump()
+
+    nodes["N2"].m.close()
+    net.drop_pending(dst="N2")
+    net.drop_pending(src="N2")
+    for m in ("N0", "N1"):
+        nodes[m].set_alive(2, False)
+    done = {}
+    for i in range(1, gap + 1):
+        nodes["N0"].propose(names[i], f"PUT d d{i}".encode(),
+                            lambda _r, x, i=i: done.__setitem__(i, x))
+    rounds = 0
+    while len(done) < gap:
+        spin(("N0", "N1"))
+        rounds += 1
+        check(rounds <= 200, f"modeb-wal degraded: {len(done)} of {gap} "
+              "PUTs answered while N2 was down")
+    check(all(x == b"OK" for x in done.values()),
+          "modeb-wal degraded: a PUT failed")
+    acked.update({(names[i], "d"): f"d{i}" for i in done})
+    path = faultdisk.newest_journal(dirs["N2"])
+    off = faultdisk.flip_byte(path, os.path.getsize(path) // 2,
+                              rng=random.Random(0))
+    check(scan_journal(path).kind == "scribble",
+          "modeb-wal: the flipped journal does not scan as a scribble")
+    with open(path, "rb") as f:
+        damaged = f.read()
+    n2, replayed, secs = recover("N2", allow_degraded=True)
+    check(getattr(n2, "recovered_degraded", False),
+          "modeb-wal: the damaged journal did not degrade recovery")
+    with open(path + ".quarantined", "rb") as f:
+        check(f.read() == damaged, "modeb-wal: the quarantined journal "
+              "differs from the damaged one")
+    tainted = len(n2._tainted_rows)
+    check(tainted == groups, f"modeb-wal degraded: {tainted} rows tainted")
+    nodes["N2"] = n2
+    for m in ("N0", "N1"):
+        nodes[m].set_alive(2, True)
+    n2.request_sync()
+    t0 = time.perf_counter()
+    rounds = 0
+    while n2._tainted_rows:
+        spin()
+        rounds += 1
+        check(rounds <= 3000, f"modeb-wal degraded: {len(n2._tainted_rows)}"
+              " rows still tainted")
+    clear_s = time.perf_counter() - t0
+    for _ in range(4):
+        spin()
+    live_l.end("modeb-wal chaos and degraded live ticks", live["ticks"])
+    _read_back(nodes, acked, "modeb-wal after the degraded recovery")
+    for n in nodes.values():
+        n.wal.close()
+    out["degraded"] = {
+        "groups_tainted": tainted, "flipped_offset": off,
+        "ticks_replayed": replayed, "recover_s": secs,
+        "taint_clear_rounds": rounds, "taint_clear_s": clear_s,
+        "ckpt_transfers": n2.stats["ckpt_transfers"],
+        "acked_read_back": len(acked)}
+    return out
+
+
+def modeb_wal_leg(torch, pg, dev, work, G=1 << 17, hot=1 << 14,
+                  gap=1 << 12, ae=64, chaos_ticks=300, chaos_groups=1 << 12,
+                  count=None):
+    """``modeb-wal-128k``: three ``ModeBNode``s on loopback ``Messenger``s,
+    each with its own [3, 4, G] state on ``dev`` (W=4, P=4), a ``KVApp``
+    and a ``ModeBLogger(native=True)`` as ``ModeBServer`` gives it (an
+    fsync every tick, a checkpoint every 1,024 ticks); anti-entropy every
+    ``ae`` ticks (the node's default).  Bulk create of G groups, election,
+    a hot wave (one PUT on each of ``hot`` groups at N0), a forced
+    checkpoint, the crash of N2 (its state copied to the host after its
+    last fsync), a gap wave of ``gap`` PUTs while it is down, its recovery
+    with a ``PeerCheckpointStreamer`` over N0 and N1 (the replayed state
+    held equal to the copy, field by field) and its rejoin; then three
+    durable nodes of G rows and ``chaos_groups`` groups on ``SimNet``: a
+    ``SimChaosRunner`` coordinator crash with real restarts, and a
+    degraded recovery (see ``_modeb_wal_chaos``).  ``count`` (default: on
+    a CUDA device) checks 5 gathers + 1 match per live and per replayed
+    node tick."""
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.modeb import (ModeBLogger, ModeBNode,
+                                           PeerCheckpointStreamer,
+                                           recover_modeb)
+    from gigapaxos_tpu_torch.modeb.logger import OP_FRAME
+    from gigapaxos_tpu_torch.net.messenger import Messenger, NodeMap
+    from gigapaxos_tpu_torch.paxos import state as st
+    from gigapaxos_tpu_torch.wal.logger import OP_TICK
+
+    count = dev.type == "cuda" if count is None else count
+    live_l = _Launches(pg, count)
+    replay_l = _Launches(pg, count)
+    cfg = modeb_cfg(G)
+    W, P = cfg.paxos.window, cfg.paxos.proposals_per_tick
+    dirs = {n: os.path.join(work, n) for n in MODEB_IDS}
+    nodemap = NodeMap()
+    msgs, nodes = {}, {}
+    tally = {n: {} for n in MODEB_IDS}
+    fsync_ms, ckpt_ms = [], []
+
+    def messenger(nid):
+        msgs[nid] = Messenger(nid, ("127.0.0.1", 0), nodemap)
+        nodemap.add(nid, "127.0.0.1", msgs[nid].port)
+        return msgs[nid]
+
+    def instrument(nid, n):
+        _journal_tally(n.wal, tally[nid])
+        _timed(n.wal, "log_inbox", fsync_ms)
+        _timed(n.wal, "checkpoint", ckpt_ms)
+        return n
+
+    for nid in MODEB_IDS:
+        messenger(nid)
+    out = {"G": G, "W": W, "P": P, "anti_entropy_every": ae,
+           "sync_every_ticks": 1, "checkpoint_every_ticks": 1024}
+    try:
+        for nid in MODEB_IDS:
+            nodes[nid] = instrument(nid, ModeBNode(
+                cfg, list(MODEB_IDS), nid, KVApp(), msgs[nid],
+                wal=ModeBLogger(dirs[nid], native=True),
+                anti_entropy_every=ae, device=dev))
+        check(all(n.wal.backend == "native" for n in nodes.values()),
+              "modeb-wal: the native journal did not open")
+        run = _ModeBRun(nodes)
+        ticks = {"n": 0}  # node ticks of the live path (crashes included)
+        spin = run.spin
+
+        def counted_spin(k=1, only=None):
+            for _ in range(k):
+                ticks["n"] += sum(1 for m in nodes
+                                  if only is None or m in only)
+                spin(1, only=only)
+
+        run.spin = counted_spin
+        names = [f"g{i}" for i in range(G)]
+        t0 = time.perf_counter()
+        for n in nodes.values():
+            check(n.create_groups_bulk(names, [0, 1, 2]) == G,
+                  "modeb-wal: bulk create")
+        out["create_bulk_s"] = time.perf_counter() - t0
+        live_l.begin()
+        t_before = ticks["n"]
+        t0 = time.perf_counter()
+        rounds = 0
+        while not all((n._coord_view == 0).all() for n in nodes.values()):
+            run.spin(1)
+            rounds += 1
+            check(rounds <= 400, "modeb-wal: election did not finish")
+        out["elect"] = {"rounds": rounds, "s": time.perf_counter() - t0}
+        acked = {}
+
+        def wave(at, sel, key, tag, only=None):
+            payloads = [f"PUT {key} {tag}{i}".encode() for i in sel]
+            got, r, s = run.wave(at, [names[i] for i in sel], payloads,
+                                 400, only=only, tag=f"modeb-wal {tag}")
+            check(len(got) == len(sel), f"modeb-wal {tag}: lost answers")
+            for i in sel:
+                acked[(names[i], key)] = f"{tag}{i}"
+            return r, s
+
+        for t in tally.values():
+            t.clear()
+        fsync_ms.clear()
+        run.tick_ms.clear()
+        t_hot = ticks["n"]
+        hot_rounds, hot_s = wave("N0", range(hot), "h", "h")
+        hot_ticks = ticks["n"] - t_hot
+        tick_b = sum(t.get(OP_TICK, 0) for t in tally.values())
+        frame_b = sum(t.get(OP_FRAME, 0) for t in tally.values())
+        all_b = sum(sum(t.values()) for t in tally.values())
+        out["hot"] = {"commits": hot, "rounds": hot_rounds, "s": hot_s,
+                      "commits_per_s": hot / hot_s,
+                      "node_tick_ms_p50": _pct(run.tick_ms, 0.5),
+                      "node_tick_ms_p99": _pct(run.tick_ms, 0.99)}
+        out["journal"] = {
+            "bytes_per_node_tick": all_b / hot_ticks,
+            "op_tick_bytes_per_node_tick": tick_b / hot_ticks,
+            "op_frame_bytes_per_node_tick": frame_b / hot_ticks,
+            "bytes_per_request": all_b / hot,
+            "wal_fsync_ms_p50": _pct(fsync_ms, 0.5),
+            "wal_fsync_ms_p99": _pct(fsync_ms, 0.99)}
+        # a checkpoint inside the next tick of every node (the tick's own
+        # maybe_checkpoint), so recovery reads a snapshot, then a tail
+        for n in nodes.values():
+            n.wal._ticks_since_ckpt = n.wal.checkpoint_every - 1
+        run.spin(1)
+        check(len(ckpt_ms) == 3, f"modeb-wal: {len(ckpt_ms)} checkpoints")
+        snap = sorted(glob.glob(os.path.join(dirs["N2"], "snapshot.*")))
+        out["snapshot"] = {"mb": os.path.getsize(snap[-1]) / 1e6,
+                           "checkpoint_s_max": max(ckpt_ms) / 1e3}
+        run.spin(3)  # a journal tail after the snapshot
+
+        n2_tick = {}
+
+        def quiesce_and_crash(nid):
+            """Stop ticking; let N2 take the frames of the last round, tick
+            it once more (its last fsync), cut it off and copy its state:
+            -> (host state copy, crash time)."""
+            n = nodes[nid]
+            others = [m for m in MODEB_IDS if m != nid]
+            deadline = time.monotonic() + 60
+            while not all(n._frame_applied_tick.get(MODEB_IDS.index(m))
+                          == nodes[m].tick_num for m in others):
+                check(time.monotonic() < deadline,
+                      f"modeb-wal: {nid} never got the last frames")
+                time.sleep(0.005)
+            n.tick()
+            ticks["n"] += 1
+            msgs[nid].close()
+            t_crash = time.perf_counter()
+            with n.lock:
+                copy = st.state_to_numpy(n.state)
+                n2_tick["n"] = n.tick_num
+            del nodes[nid]
+            for m in others:
+                nodes[m].set_alive(MODEB_IDS.index(nid), False)
+                nodes[m].m.transport.reset_peer(nid)
+            return copy, t_crash
+
+        pre, t_crash = quiesce_and_crash("N2")
+        pre_tick = n2_tick["n"]
+        live_l.end("modeb-wal live ticks before the crash",
+                   ticks["n"] - t_before)
+        gap_sel = range(hot, hot + gap)
+        live_l.begin()
+        t_gap = ticks["n"]
+        wave("N0", gap_sel, "g", "gap", only=("N0", "N1"))
+        live_l.end("modeb-wal gap wave", ticks["n"] - t_gap)
+
+        def recover():
+            """Recover N2 with a stream over N0 and N1 (its fetches overlap
+            the replay); -> (node, stream, replay probe, seconds, replayed
+            state, sub-timings)."""
+            ps = PeerCheckpointStreamer(
+                {m: nodes[m].donate_ckpt for m in ("N0", "N1")}, window=4)
+            # the replayed state, before the stream's blobs are adopted
+            replayed, marks = {}, {}
+            adopt, worker = ps.apply, ps._worker
+
+            def apply(node):
+                marks["adopt_start"] = time.perf_counter()
+                replayed["state"] = st.state_to_numpy(node.state)
+                replayed["tick_num"] = node.tick_num
+                return adopt(node)
+
+            def timed_worker():
+                worker()
+                marks["fetch_end"] = max(marks.get("fetch_end", 0.0),
+                                         time.perf_counter())
+
+            ps.apply, ps._worker = apply, timed_worker
+            replay_l.begin()
+            t0 = time.perf_counter()
+            with _ReplayProbe(torch, dev) as probe:
+                n2 = recover_modeb(cfg, list(MODEB_IDS), "N2", KVApp(),
+                                   dirs["N2"], native=True, peer_stream=ps,
+                                   device=dev)
+            rec_s = time.perf_counter() - t0
+            marks = {k: v - t0 for k, v in marks.items()}
+            replay_l.end("modeb-wal replay", len(probe.copy_ms))
+            check(ps.stats["failed"] == 0, f"modeb-wal: stream {ps.stats}")
+            return n2, ps, probe, rec_s, replayed, marks
+
+        def rejoin(n2, what, t_crash):
+            """Attach, request_sync, a probe PUT at N2 (first served), then
+            every gap-wave group on N2 (full service)."""
+            nodes["N2"] = instrument("N2", n2)
+            n2.attach_messenger(messenger("N2"))
+            for m in ("N0", "N1"):
+                nodes[m].set_alive(2, True)
+            n2.request_sync()
+            live_l.begin()
+            t_live = ticks["n"]
+            pr, _ = wave("N2", [G - 1], "p", f"probe-{what}-")
+            first = time.perf_counter() - t_crash
+            rounds = 0
+            while any(n2.app.db.get(names[i], {}).get("g") != f"gap{i}"
+                      for i in gap_sel):
+                run.spin(1)
+                rounds += 1
+                check(rounds <= 400, f"modeb-wal {what}: N2 never served "
+                      "the gap wave")
+            full = time.perf_counter() - t_crash
+            run.spin(4)
+            live_l.end(f"modeb-wal after {what}", ticks["n"] - t_live)
+            _read_back(nodes, acked, f"modeb-wal after {what}")
+            return {"crash_to_first_served_s": first,
+                    "crash_to_full_service_s": full,
+                    "probe_rounds": pr, "full_service_rounds": rounds}
+
+        # ---- recovery 1: snapshot + journal tail, with the peer stream
+        n2, ps, probe, rec_s, replayed, marks = recover()
+        check(replayed["tick_num"] == pre_tick, "modeb-wal replay: tick "
+              f"{replayed['tick_num']}, crashed at {pre_tick}")
+        _same_state(pre, replayed["state"], "modeb-wal replay")
+        out["recovery"] = {
+            "ticks_replayed": len(probe.copy_ms), "recover_s": rec_s,
+            "packed_copy_ms_per_replayed_tick": (
+                statistics.median(probe.copy_ms) if probe.copy_ms
+                else None),
+            "stream": dict(ps.stats), "stream_marks_s": marks,
+            **rejoin(n2, "recovery", t_crash)}
+        out["acked"] = len(acked)
+    finally:
+        for m in msgs.values():
+            m.close()
+        # under each node's lock: a frame still arriving on a messenger
+        # thread appends to the journal under it, and must never meet a
+        # closed (freed) native journal
+        for n in nodes.values():
+            with n.lock:
+                n.wal.close()
+    # ---- the chaos run: three durable nodes on SimNet
+    with _ReplayProbe(torch, dev) as probe:
+        out["chaos"] = _modeb_wal_chaos(
+            torch, dev, G, min(G, chaos_groups), work, chaos_ticks, ae,
+            live_l, replay_l, probe, gap=min(gap, chaos_groups - 1))
+    out["live_node_ticks"] = live_l.ticks
+    out["replayed_node_ticks"] = replay_l.ticks
+    out["launches"] = live_l.result()
+    out["replay_launches"] = replay_l.result()
+    return out
+
+
 def modeb_phase(torch, pg, dev, G_1m=1 << 20, hot=1 << 14, laggard=1 << 16,
                 G_fast=1 << 17, busy_fast=4096, G_dev=1 << 17,
-                busy_dev=4096, dev_ticks=16, cpu_ticks=3):
-    """The three Mode B legs; each Mode B path's launches in ``launches``
+                busy_dev=4096, dev_ticks=16, cpu_ticks=3, G_wal=1 << 17,
+                hot_wal=1 << 14, gap_wal=1 << 12):
+    """The four Mode B legs; each Mode B path's launches in ``launches``
     (``modeb``: the 1M leg, the fast leg's classical half and the device
-    leg; ``modeb_fast``: the fast leg's fast half)."""
+    leg; ``modeb_fast``: the fast leg's fast half; ``modeb_wal`` and
+    ``modeb_replay``: the durable leg's live and replayed node ticks)."""
     t0 = time.perf_counter()
     out = {"modeb-1M": modeb_1m_leg(torch, pg, dev, G_1m, hot=hot,
                                     laggard=laggard, cpu_ticks=cpu_ticks)}
     out["modeb-fast"] = modeb_fast_leg(torch, pg, dev, G_fast, busy_fast)
     out["modeb-device-128k"] = modeb_device_leg(torch, pg, dev, G_dev,
                                                 busy_dev, dev_ticks)
+    work = tempfile.mkdtemp(prefix="chip_smoke_modeb_wal_")
+    try:
+        t1 = time.perf_counter()
+        wal = modeb_wal_leg(torch, pg, dev, work, G_wal, hot_wal, gap_wal)
+        wal["leg_s"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # the same hot wave's rate without a journal, at 2^20 rows
+    wal["hot"]["modeb_1m_commits_per_s_without_journal"] = (
+        out["modeb-1M"]["hot"]["commits_per_s"])
+    out["modeb-wal-128k"] = wal
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -2882,6 +3451,13 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
     bw = bandwidth_of(kind)
     R, W, P, G = 3, 8, 4, 1 << 20
+
+    def stamp(what):
+        """The run's seconds so far, after each phase (for the depth
+        budget)."""
+        print(f"elapsed after {what}: {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     try:
         t0 = time.perf_counter()
         log = cuda_build.build("plane_gather") or ""
@@ -2892,12 +3468,14 @@ def main(argv=None) -> int:
         print(f"edge cases: {edge_cases(torch, pg, dev)} calls equal to "
               "the plain versions", flush=True)
         rows = kernels_phase(torch, pg, dev, R, W, P, G, bw)
+        stamp("kernels")
         # each main path runs with the counts set to 0 just before it
         pg.reset_launches()
         tick = tick_phase(torch, dev, R, W, P, G, warm=3, timed=30,
                           cpu_ticks=3, exec_budget=R * G + 4096)
         launches = {"tick": path_launches(pg, "tick", tick["ticks_total"])}
         print("tick " + json.dumps(tick), flush=True)
+        stamp("tick")
         pg.reset_launches()
         mgr = manager_phase(torch, dev, R, W, 1 << 17, ticks=30)
         launches["manager"] = path_launches(pg, "manager",
@@ -2905,9 +3483,11 @@ def main(argv=None) -> int:
         print("manager " + json.dumps(mgr), flush=True)
         print("kv " + json.dumps({"groups": kv_leg(torch, dev, R, W)}),
               flush=True)
+        stamp("manager")
         dense, sparse = wal_phase(torch, dev, R, W, mgr["ms_per_tick"])
         print("wal-128k " + json.dumps(dense), flush=True)
         print("recovery-1M-sparse " + json.dumps(sparse), flush=True)
+        stamp("wal")
         # the replay path: both legs' batched recoveries
         launches["replay"] = {k: dense["launches"][k] + sparse["launches"][k]
                               for k in dense["launches"]}
@@ -2918,12 +3498,14 @@ def main(argv=None) -> int:
         clu["card"] = card
         launches["cluster"] = clu["launches"]
         print("cluster " + json.dumps(clu), flush=True)
+        stamp("cluster")
         mixed, reads = planes_phase(torch, pg, dev)
         for leg in mixed:
             leg["card"] = card
             print("mixed-1M " + json.dumps(leg), flush=True)
         reads["card"] = card
         print("reads-128k " + json.dumps(reads), flush=True)
+        stamp("planes")
         launches["mixed"] = {k: sum(leg["launches"][k] for leg in mixed)
                              for k in launches["tick"]}
         launches["reads"] = reads["launches"]
@@ -2934,17 +3516,21 @@ def main(argv=None) -> int:
         try:
             kvp = device_kv_phase(torch, pg, dev, work,
                                   manager_dps=mgr["dec_per_s"])
+            stamp("device-kv")
             chp = chain_phase(torch, pg, dev, work, n_names=128)
+            stamp("chain")
         finally:
             shutil.rmtree(work, ignore_errors=True)
         for leg, res in list(kvp.items()) + list(chp.items()):
             res["card"] = card
             print(leg + " " + json.dumps(res), flush=True)
         mbp = modeb_phase(torch, pg, dev)
-        for leg in ("modeb-1M", "modeb-fast", "modeb-device-128k"):
+        for leg in ("modeb-1M", "modeb-fast", "modeb-device-128k",
+                    "modeb-wal-128k"):
             mbp[leg]["card"] = card
             print(leg + " " + json.dumps(mbp[leg]), flush=True)
         print(f"modeb phase {mbp['phase_s']:.1f} s", flush=True)
+        stamp("modeb")
 
         def total(*runs):
             return {k: sum(r[k] for r in runs) for k in launches["tick"]}
@@ -2966,6 +3552,9 @@ def main(argv=None) -> int:
             mbp["modeb-fast"]["launches"]["full"],
             mbp["modeb-device-128k"]["launches"])
         launches["modeb_fast"] = mbp["modeb-fast"]["launches"]["fast"]
+        # the durable leg: live node ticks, and the replayed ones
+        launches["modeb_wal"] = mbp["modeb-wal-128k"]["launches"]
+        launches["modeb_replay"] = mbp["modeb-wal-128k"]["replay_launches"]
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)

@@ -1,13 +1,17 @@
 """Mode-B node manager: one independent consensus node per process.
 
-The reference's deployment unit is a machine-level ``PaxosManager``
-exchanging ACCEPT / ACCEPT_REPLY / DECISION over the network
+The reference's deployment unit is a machine-level ``PaxosManager`` with its
+own disk log, exchanging ACCEPT / ACCEPT_REPLY / DECISION over the network
 (gigapaxos/PaxosManager.java:104-119; ACCEPT multicast
-PaxosInstanceStateMachine.java:844-845).  :class:`ModeBNode` is that unit
-for the dense design:
+PaxosInstanceStateMachine.java:844-845; per-node logs
+SQLPaxosLogger.java:123).  :class:`ModeBNode` is that unit for the dense
+design:
 
 * own device state (authoritative row r + peer mirrors, ``kernel.py``) on
   ``device`` (CUDA unless the caller asks for the CPU);
+* own WAL (:class:`~gigapaxos_tpu_torch.modeb.logger.ModeBLogger`) —
+  snapshot + journal of everything that feeds the deterministic step:
+  admin ops, applied replica frames, placed intake;
 * replica traffic as per-tick SoA frames over the Messenger (``wire.py``),
   delta-encoded by the kernel's change mask with periodic anti-entropy
   full frames;
@@ -19,18 +23,18 @@ for the dense design:
 
 Losing a machine here means losing a process: a SIGKILL'd node stops
 framing, the survivors' failure view marks its row dead, a surviving
-member wins the coordinatorship and the majority keeps committing.
-
-A node here runs without a write-ahead log (``wal=None``): its journal, its
-recovery and the peer checkpoint streamer come with the Mode B durability
-slice of the port, and a ``wal`` argument raises ``NotImplementedError``.
+member wins the coordinatorship and the majority keeps committing; the
+killed node restarts from *its own* journal (``recover_modeb``) and
+rejoins.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import queue
 import struct
+import threading
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -105,10 +109,6 @@ class ModeBNode(ModeBCommon):
         planes (AR + RC) of one process share a cfg and must never adopt
         or clear each other's cold files.  ``device`` holds the node's
         state (``None`` = CUDA; see ``device.resolve_device``)."""
-        if wal is not None:
-            raise NotImplementedError(
-                "not ported yet: a Mode B write-ahead log (the Mode B "
-                "durability slice)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.members = list(member_ids)
@@ -343,15 +343,15 @@ class ModeBNode(ModeBCommon):
         self._in_req = np.zeros((self.R, self.P, self.G), np.int32)
         self._in_stp = np.zeros((self.R, self.P, self.G), bool)
 
-        #: the journal hook of the shared plumbing (``common.py``): always
-        #: None on this slice's nodes
-        self.wal = None
+        self.wal = wal
+        if wal is not None:
+            wal.attach(self)
         if messenger is not None:
             self.attach_messenger(messenger)
 
     def attach_messenger(self, messenger: Messenger) -> None:
-        """Wire the transport endpoint (also callable after construction,
-        before any live traffic interleaves)."""
+        """Wire the transport endpoint.  Separate from __init__ so recovery
+        can finish journal replay before any live traffic interleaves."""
         self.m = messenger
         d = self.m.demux
         prev = d.bytes_handler
@@ -361,8 +361,9 @@ class ModeBNode(ModeBCommon):
             if payload.startswith(wire.RELAY_MAGIC):
                 self._on_relay(sender, payload)
             elif payload.startswith(wire.BATCH_MAGIC):
-                # per-(peer, tick) container: split and apply each sub-frame
-                # individually, exactly like a singly-sent stream
+                # per-(peer, tick) container: split and journal/apply each
+                # sub-frame individually, so WAL replay sees exactly the
+                # records a singly-sent stream would have produced
                 try:
                     subs = wire.decode_frames(payload)
                 except (ValueError, struct.error):
@@ -407,8 +408,8 @@ class ModeBNode(ModeBCommon):
         self._last_heard[s] = self.tick_num
 
     # ------------------------------------------------------------------ admin
-    def create_group(self, name: str, members: List[int],
-                     epoch: int = 0) -> bool:
+    def create_group(self, name: str, members: List[int], epoch: int = 0,
+                     _log: bool = True) -> bool:
         """Open a group.  Must be invoked on every member node (the control
         plane's StartEpoch does exactly that); stragglers self-heal via
         whois when the first frame for an unknown gid arrives."""
@@ -434,6 +435,8 @@ class ModeBNode(ModeBCommon):
             self._stopped_rows.discard(row)
             self._dirty[row] = True
             self._occupied[row] = True
+            if _log and self.wal is not None:
+                self.wal.log_create(name, list(members), epoch)
             return True
 
     def create_groups_bulk(self, names: List[str], members: List[int],
@@ -465,17 +468,22 @@ class ModeBNode(ModeBCommon):
                     self._row_last_active[row] = self.tick_num
                 self._dirty[rows] = True
                 self._occupied[rows] = True
+                if self.wal is not None:
+                    # one fsync for the whole batch, not one per name
+                    self.wal.log_creates(take, list(members), epoch)
             made = len(take)
         for n in rest:  # overflow: the spilling single-create path
             if self.create_group(n, list(members), epoch):
                 made += 1
         return made
 
-    def remove_group(self, name: str) -> bool:
+    def remove_group(self, name: str, _log: bool = True) -> bool:
         with self.lock:
             if name in self._paused:
                 del self._paused[name]
                 self._paused_gids.pop(wire.gid_of(name), None)
+                if _log and self.wal is not None:
+                    self.wal.log_remove(name)
                 return True
             row = self.rows.row(name)
             if row is None:
@@ -507,6 +515,8 @@ class ModeBNode(ModeBCommon):
             self._occupied[row] = False
             self._dirty[row] = False
             self._purge_staged_row(row)
+            if _log and self.wal is not None:
+                self.wal.log_remove(name)
             return True
 
     # ------------------------------------------------------------ pause/spill
@@ -554,6 +564,8 @@ class ModeBNode(ModeBCommon):
                 names.append(name)
         if names:
             self._do_pause(names)
+            if self.wal is not None:
+                self.wal.log_pause(names)
         return len(names)
 
     def _kv_clear_rows(self, rows) -> None:
@@ -566,7 +578,8 @@ class ModeBNode(ModeBCommon):
             self.kv.val[:, r] = 0
 
     def _do_pause(self, names) -> None:
-        """Spill exactly ``names``."""
+        """Spill exactly ``names`` (also the WAL replay entry point — must
+        mirror the live run's choice so row allocation stays in lockstep)."""
         rows_to_free = []
         for name in names:
             row = self.rows.row(name)
@@ -632,6 +645,8 @@ class ModeBNode(ModeBCommon):
         self._dirty[row] = True  # announce our restored row to peers
         self._row_last_active[row] = self.tick_num
         self.stats["unpaused"] += 1
+        if self.wal is not None:
+            self.wal.log_unpause(name)
         return row
 
     def paused_count(self) -> int:
@@ -686,11 +701,14 @@ class ModeBNode(ModeBCommon):
         """Explicitly flag a row as not-authoritative (e.g. an epoch group
         born without its carried state because the previous epoch's final
         state was GC'd) — `_check_laggard` repairs it by checkpoint
-        transfer from a caught-up peer."""
+        transfer from a caught-up peer.  Journaled: a crash must not
+        resurrect the row untainted with its empty birth state."""
         with self.lock:
             row = self.rows.row(name)
             if row is not None:
                 self._tainted_rows.add(row)
+                if self.wal is not None and hasattr(self.wal, "log_taint"):
+                    self.wal.log_taint(name)
 
     # ---------------------------------------------------------------- propose
     def propose(self, name: str, payload: bytes,
@@ -705,6 +723,17 @@ class ModeBNode(ModeBCommon):
         expired work is dropped at drain with RID_EXPIRED.  ``cls`` is the
         traffic class: client-class proposes are subject to the intake
         governor's watermark shed (RID_BUSY), control-class never."""
+        wal = self.wal
+        _aw = getattr(wal, "accepting_writes", None)  # test stubs lack it
+        if _aw is not None and not _aw():
+            # storage low-watermark / failed WAL: shed with the retriable
+            # failure convention (response None); reads keep serving
+            wal.note_shed()
+            self.stats["shed_requests"] += 1
+            with self.lock:
+                if callback is not None:
+                    self._held_callbacks.append((callback, -1, None))
+            return None
         if (cls != _overload.CLS_CONTROL and self.overload is not None
                 and not self.overload.admit(cls)):
             # watermark shed: explicit retriable busy NACK, never silent
@@ -790,7 +819,7 @@ class ModeBNode(ModeBCommon):
 
     def _forward(self, rec: ModeBRecord, coord: int) -> None:
         if self.m is None:
-            self._queues[rec.row].append(rec.rid)  # no transport: keep local
+            self._queues[rec.row].append(rec.rid)  # replay: keep local
             return
         msg = {
             "type": MB_PROPOSAL,
@@ -804,6 +833,12 @@ class ModeBNode(ModeBCommon):
             # on this tick's frames (PendingDigests' entry-replica
             # broadcast, PaxosInstanceStateMachine.java:1089-1102)
             self._extra_pay.append((rec.rid, rec.stop, rec.payload))
+            if self.wal is not None:
+                # non-digest replay re-learns a forwarded payload from the
+                # coordinator's (journaled) frames; digest frames are
+                # rid-only, so the entry's own journal is the ONLY durable
+                # home of this payload — record it or replay stalls on it
+                self.wal.log_payload(rec.rid, rec.payload, rec.stop)
         else:
             msg["payload"] = rec.payload.hex()
         self.m.send(self.members[coord], msg)
@@ -859,7 +894,7 @@ class ModeBNode(ModeBCommon):
     def _kv_note(self, rid: int, payload: bytes) -> None:
         """Stage a request descriptor for upload inside the next fused tick
         (every payload choke point funnels here: own proposes, forwards,
-        frame payload items, undigest fills)."""
+        frame payload items, undigest fills, journal replay)."""
         if len(payload) != _DESC_LEN or rid in self._kv_known:
             return
         self._kv_known[rid] = True
@@ -908,6 +943,9 @@ class ModeBNode(ModeBCommon):
             inbox = self._build_inbox()
             placed = self._placed
             pc.mark("intake")
+            # dispatch first, journal second: the WAL append+fsync overlaps
+            # the asynchronous device step; responses stay held until
+            # is_synced()
             if self._device_app:
                 hold = np.zeros(self.G, bool)
                 if self._stalled:
@@ -919,7 +957,8 @@ class ModeBNode(ModeBCommon):
             else:
                 self.state, packed = self._tick_packed(self.state, inbox)
             pc.mark("dispatch")
-            # no journal on this slice: the phase stays in the vocabulary
+            if self.wal is not None:
+                self.wal.log_inbox(self.tick_num, self.alive)
             pc.mark("wal_fsync")
             self.tick_num += 1
             if self.cfg.paxos.pipeline_ticks:
@@ -935,6 +974,10 @@ class ModeBNode(ModeBCommon):
                 pc.mark("tally")
                 self._pending_out = (out, placed, extras)
                 self._dirty |= changed
+                if self.wal is not None and self.wal.checkpoint_due():
+                    # the snapshot's host metadata must cover every tick the
+                    # device state contains — drain the one-tick pipeline
+                    self.drain_pipeline()
             else:
                 out, changed, extras = self._unpack_tick(packed)
                 pc.mark("tally")
@@ -947,6 +990,8 @@ class ModeBNode(ModeBCommon):
             frames = self._build_frames()
             relay = self._build_relay()
             pc.mark("outbox_pack")
+            if self.wal is not None:
+                self.wal.maybe_checkpoint()
         if frames and self.m is not None:
             self.stats["frame_bytes_sent"] += sum(map(len, frames)) * (
                 len(self.members) - 1
@@ -1291,6 +1336,11 @@ class ModeBNode(ModeBCommon):
                 "churn": float(self._h_churn[row]) / 16.0,
                 "heat": float(self._h_heat[row]) / 16.0,
             }
+        if self.wal is not None and hasattr(self.wal, "tail_for_row"):
+            try:
+                info["wal_tail"] = self.wal.tail_for_row(int(row), name)
+            except Exception:
+                info["wal_tail"] = None
         return info
 
     def read(
@@ -1529,6 +1579,10 @@ class ModeBNode(ModeBCommon):
             if rid not in self.outstanding and rid not in self.payloads:
                 self._store_payload(rid, pl, stop)
                 self.stats["undigest_fills"] += 1
+                if self.wal is not None:
+                    # out-of-band payload arrival mutates what replay can
+                    # execute — journal it like a frame payload
+                    self.wal.log_payload(rid, pl, stop)
         self._wake()
 
     def _sweep(self) -> None:
@@ -1625,7 +1679,7 @@ class ModeBNode(ModeBCommon):
         return self.members[d], buf
 
     def _on_relay(self, sender: str, payload: bytes) -> None:
-        """Upstream relay slab: adopt unseen payloads, stage the
+        """Upstream relay slab: adopt+journal unseen payloads, stage the
         (masked) slab for the downstream hop.  A slab lost to a crash
         between here and downstream is NOT retransmitted — receivers that
         commit a rid without its payload refetch via the undigest path,
@@ -1652,6 +1706,10 @@ class ModeBNode(ModeBCommon):
                 body = bytes(slab.blob[int(offs[i]): int(offs[i + 1])])
                 self._store_payload(rid, body, bool(stops[i]))
                 self.stats["relay_payloads"] += 1
+                if self.wal is not None:
+                    # journaled like an undigest fill so WAL replay of a
+                    # ring deployment stays bit-identical (OP_PAYLOAD)
+                    self.wal.log_payload(rid, body, bool(stops[i]))
             pre = fresh & ((rids >> RID_SHIFT) != self.r)
             if pre.any():
                 self._relay_fwd.append((slab, pre))
@@ -1665,6 +1723,8 @@ class ModeBNode(ModeBCommon):
             self.stats["bad_frames"] += 1
             return
         with self.lock:
+            if self.wal is not None:
+                self.wal.log_frame(payload)
             self._apply_frame(frame, sender)
         self._wake()
 
@@ -1811,8 +1871,10 @@ class ModeBNode(ModeBCommon):
     def donate_ckpt(self, gid: int) -> Optional[dict]:
         """Build a checkpoint-transfer packet for one of our rows, or None
         if this replica must not donate.  Shared by the async
-        ``MB_CKPT_REQ`` handler and in-process callers that fetch
-        synchronously."""
+        ``MB_CKPT_REQ`` handler and the recovery-time
+        :class:`PeerCheckpointStreamer` (synchronous fetch, from its worker
+        threads while this node ticks: everything is read under the node
+        lock into host copies, so a packet never aliases live tensors)."""
         with self.lock:
             # the donated (watermark, blob) pair must be consistent: with a
             # pipelined tick in flight the device exec watermark is ahead
@@ -1850,11 +1912,14 @@ class ModeBNode(ModeBCommon):
             row = self._gid_row.get(gid)
             if row is None:
                 return
+            if self.wal is not None:
+                self.wal.log_ckpt(gid, p)
             self._apply_ckpt(row, p)
 
     def _apply_ckpt(self, row: int, p: dict) -> None:
-        """Adopt a donor checkpoint into our own row (the transfer mutates
-        state outside the deterministic tick)."""
+        """Adopt a donor checkpoint into our own row (shared with WAL
+        replay — the transfer mutates state outside the deterministic tick,
+        so it is journaled as its own record)."""
         donor_exec = int(p["exec_slot"])
         have = int(self.state.exec_slot[self.r, row])
         if donor_exec < have or (donor_exec == have
@@ -1913,3 +1978,117 @@ class ModeBNode(ModeBCommon):
         if self.m is not None:
             self.m.close()
 
+
+
+class PeerCheckpointStreamer:
+    """Parallel peer snapshot streaming for recovery.
+
+    Anti-entropy repair alone fetches peer checkpoints one row at a time,
+    *after* local WAL replay finished — so time-to-full-service is replay
+    + N sequential transfers.  This streamer overlaps the two: recovery
+    hands it the fetch plan (the recovering node's own group ids) *before*
+    replay starts, worker threads pull checkpoint packets from multiple
+    donors concurrently while the replay loop runs, and the blobs are
+    adopted after replay through the same watermark-checked
+    ``_apply_ckpt`` path as a live transfer — a blob that replay already
+    caught up past is simply dropped as stale, so overlap can never
+    regress state.
+
+    ``fetchers`` maps donor id -> ``callable(gid) -> packet | None``
+    where the packet is ``MB_CKPT``-shaped (``exec_slot`` / ``status`` /
+    ``state``); :meth:`ModeBNode.donate_ckpt` is the canonical donor-side
+    producer (in-process planes and tests call it directly; an RPC
+    deployment wraps its transport equivalent).  Donors are interleaved
+    round-robin across the plan and failed fetches rotate to the next
+    donor, so one slow or refusing peer neither serializes nor starves
+    the stream."""
+
+    def __init__(self, fetchers: Dict[str, Callable], window: int = 4):
+        self.fetchers = dict(fetchers)
+        self.window = max(1, int(window))
+        self._results: list = []
+        self._threads: list = []
+        self._lock = threading.Lock()
+        self._queue = None
+        self._planned: set = set()
+        self.stats = {"fetched": 0, "failed": 0, "applied": 0, "stale": 0}
+
+    def start(self, gids) -> None:
+        """Begin fetching (non-blocking).  ``gids`` is the initial fetch
+        plan — every own row known at recovery start (snapshot rows).
+        Rows that only materialize during journal replay (no checkpoint
+        yet) are picked up by :meth:`apply`, which extends the plan before
+        adopting."""
+        self._launch(gids)
+
+    def _launch(self, gids) -> None:
+        peers = sorted(self.fetchers)
+        gids = [int(g) for g in gids if int(g) not in self._planned]
+        if not peers or not gids:
+            return
+        self._planned.update(gids)
+        if self._queue is None:
+            self._queue = queue.Queue()
+        for i, gid in enumerate(gids):
+            self._queue.put((gid, i % len(peers)))
+        # workers exit when the queue drains, so each launch (re)spawns
+        # its own window of them
+        for _ in range(min(self.window, len(gids))):
+            t = threading.Thread(target=self._worker, daemon=True,
+                                 name="ckpt-stream")
+            t.start()
+            self._threads.append(t)
+
+    def _worker(self) -> None:
+        peers = sorted(self.fetchers)
+        while True:
+            try:
+                gid, pi = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            pkt = None
+            for off in range(len(peers)):  # rotate donors on failure
+                peer = peers[(pi + off) % len(peers)]
+                try:
+                    pkt = self.fetchers[peer](gid)
+                except Exception:
+                    pkt = None
+                if pkt is not None:
+                    break
+            with self._lock:
+                if pkt is not None:
+                    self.stats["fetched"] += 1
+                    self._results.append((gid, pkt))
+                else:
+                    self.stats["failed"] += 1
+
+    def join(self, timeout_s: Optional[float] = None) -> list:
+        for t in self._threads:
+            t.join(timeout_s)
+        with self._lock:
+            return list(self._results)
+
+    def apply(self, node) -> int:
+        """Adopt the fetched blobs (recovery thread, after replay and WAL
+        re-attach).  Mirrors the live ``_on_ckpt`` order — journal the
+        transfer, then apply through the watermark check — so a crash
+        mid-adoption replays to the same state."""
+        # rows born inside the journal (unknown at stream start — no
+        # checkpoint covered them yet) join the plan now: still a
+        # parallel multi-donor fetch, just without the replay overlap
+        self._launch(set(node._gid_row))
+        applied = 0
+        for gid, pkt in self.join():
+            row = node._gid_row.get(int(gid))
+            if row is None:
+                continue
+            before = node.stats["ckpt_transfers"]
+            if node.wal is not None:
+                node.wal.log_ckpt(int(gid), dict(pkt))
+            node._apply_ckpt(row, pkt)
+            if node.stats["ckpt_transfers"] > before:
+                applied += 1
+                self.stats["applied"] += 1
+            else:
+                self.stats["stale"] += 1
+        return applied

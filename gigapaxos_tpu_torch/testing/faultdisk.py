@@ -4,14 +4,20 @@ The WAL's fault model (wal/journal.py, wal/logger.py) claims four
 recoverable disk behaviors: torn writes (power cut mid-append), scribbles
 (firmware/bit-rot damaging fsynced bytes), fsync errors (the fsyncgate
 class — the kernel reported EIO and dropped the dirty pages), and
-disk-full.  This module manufactures all four deterministically so tests
-can drive them against either journal backend and assert the recovery
-contract: every acked decision survives, or the node visibly fail-stops —
-never a silent divergence.
+disk-full.  This module manufactures all four deterministically so the
+chaos plane (testing/chaos.py) and tests can drive them against either
+journal backend and assert the recovery contract: every acked decision
+survives, or the node visibly fail-stops — never a silent divergence.
 
-``install()`` registers :class:`FaultyJournal` as the logger-level journal
-wrapper (``wal.logger.set_journal_wrapper``); an :class:`Injector` arms
-faults per WAL directory.
+Two injection paths:
+
+* in-process — ``install()`` registers :class:`FaultyJournal` as the
+  logger-level journal wrapper (``wal.logger.set_journal_wrapper``); an
+  :class:`Injector` arms faults per WAL directory.
+* cross-process — a worker started with ``GPTPU_WAL_FAULTS=1`` wraps its
+  journals via :func:`wrap_from_env`, which reads a ``FAULT.json`` plan
+  the runner drops next to the journal (the only channel into a child the
+  runner cannot reach in-process).
 
 File-level helpers (:func:`flip_byte`, :func:`tear_tail`,
 :func:`newest_journal`) operate on a *crashed* node's directory — the
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import errno
 import glob
+import json
 import os
 import random
 from typing import Dict, Optional
@@ -128,8 +135,8 @@ class FaultyJournal:
 # ----------------------------------------------------------- in-process arm
 class Injector:
     """Process-wide fault director: tracks every FaultyJournal created by
-    the logger wrapper, keyed by WAL directory, so a test can arm faults
-    on "node N's disk" without holding journal references."""
+    the logger wrapper, keyed by WAL directory, so a chaos runner can arm
+    faults on "node N's disk" without holding journal references."""
 
     def __init__(self):
         self.journals: Dict[str, FaultyJournal] = {}  # dir -> newest shim
@@ -171,6 +178,67 @@ def uninstall() -> None:
     from ..wal import logger as wal_logger
 
     wal_logger.set_journal_wrapper(None)
+
+
+# -------------------------------------------------------- cross-process arm
+def plan_path(log_dir: str) -> str:
+    return os.path.join(log_dir, "FAULT.json")
+
+
+def write_plan(log_dir: str, plan: dict) -> str:
+    """Drop a fault plan a GPTPU_WAL_FAULTS worker will pick up when it
+    (re)opens its journal.  Keys: ``fsync_error_after`` (syncs),
+    ``disk_full_after`` / ``torn_write_after`` (appends); 0 = immediately.
+    """
+    p = plan_path(log_dir)
+    tmp = p + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(plan, f)
+    os.replace(tmp, p)
+    return p
+
+
+class _PlannedJournal(FaultyJournal):
+    """FaultyJournal driven by a countdown plan instead of explicit arms."""
+
+    def __init__(self, inner, path: str, plan: dict):
+        super().__init__(inner, path)
+        self._appends = 0
+        self._syncs = 0
+        self.plan = plan
+
+    def append(self, record: bytes) -> None:
+        if self._countdown("disk_full_after", self._appends):
+            self.arm("disk_full")
+        if self._countdown("torn_write_after", self._appends):
+            self.arm("torn_write")
+        self._appends += 1
+        super().append(record)
+
+    def sync(self) -> None:
+        if self._countdown("fsync_error_after", self._syncs):
+            self.arm("fsync_error")
+        self._syncs += 1
+        super().sync()
+
+    def _countdown(self, key: str, done: int) -> bool:
+        v = self.plan.get(key)
+        return v is not None and done >= int(v)
+
+
+def wrap_from_env(j, path: str):
+    """Hook used by ``wal.logger._new_journal`` under GPTPU_WAL_FAULTS=1:
+    if a FAULT.json plan sits next to the journal, wrap it; otherwise the
+    journal passes through untouched (workers whose disks behave)."""
+    p = plan_path(os.path.dirname(os.path.abspath(path)))
+    if not os.path.exists(p):
+        return j
+    try:
+        with open(p) as f:
+            plan = json.load(f)
+    except (OSError, ValueError):
+        return j
+    return _PlannedJournal(j, path, plan)
 
 
 # ---------------------------------------------------------- dead-file tools

@@ -219,6 +219,13 @@ def _new_journal(path: str, native: bool):
         j = PyJournal(path)
     if _JOURNAL_WRAP is not None:
         j = _JOURNAL_WRAP(j, path)
+    elif os.environ.get("GPTPU_WAL_FAULTS"):
+        # cross-process injection (ProcChaosRunner workers): the plan file
+        # lives next to the journal so the runner can arm faults in a
+        # child it cannot reach in-process
+        from ..testing.faultdisk import wrap_from_env
+
+        j = wrap_from_env(j, path)
     return j
 
 

@@ -13,7 +13,10 @@ pause and device-app cases are in ``test_torch_modeb_planes.py``.  One
 case runs the port alone over its real loopback ``Messenger``.
 """
 
+import glob
 import itertools
+import os
+import shutil
 import time
 
 import numpy as np
@@ -23,12 +26,16 @@ import torch
 from gigapaxos_tpu import config as jconfig
 from gigapaxos_tpu.models import device_kv as jdkv
 from gigapaxos_tpu.models import replicable as jrep
+from gigapaxos_tpu.modeb import ModeBLogger as JLogger
 from gigapaxos_tpu.modeb import ModeBNode as JNode
+from gigapaxos_tpu.modeb import recover_modeb as jrecover
 from gigapaxos_tpu.paxos import state as jst
 from gigapaxos_tpu.testing.simnet import SimNet as JNet
 from gigapaxos_tpu_torch import config as tconfig
 from gigapaxos_tpu_torch.models import replicable as trep
+from gigapaxos_tpu_torch.modeb import ModeBLogger as TLogger
 from gigapaxos_tpu_torch.modeb import ModeBNode as TNode
+from gigapaxos_tpu_torch.modeb import recover_modeb as trecover
 from gigapaxos_tpu_torch.modeb import wire as twire
 from gigapaxos_tpu_torch.net.messenger import Messenger, NodeMap
 from gigapaxos_tpu_torch.paxos import state as tst
@@ -100,14 +107,37 @@ def _record(net, log):
     net._enqueue = enqueue
 
 
+def wal_files(d):
+    """(name, bytes) of every journal and snapshot file of a WAL dir."""
+    out = []
+    for pattern in ("journal.*.log", "snapshot.*.bin"):
+        for p in sorted(glob.glob(os.path.join(str(d), pattern))):
+            with open(p, "rb") as f:
+                out.append((os.path.basename(p), f.read()))
+    return out
+
+
 class Twin:
     """The same cluster in both packages, driven in lockstep and held equal
     after every step.  ``j``/``t`` are the reference's and the port's nodes
-    by id; ``tapps`` the port's apps; ``resp`` the port's responses."""
+    by id; ``tapps`` the port's apps; ``resp`` the port's responses.
+
+    With ``wal_root`` every node journals (``ModeBLogger``) into
+    ``wal_root/jax/<id>`` and ``wal_root/torch/<id>`` (a snapshot every
+    ``ckpt_every`` ticks); ``native`` picks the port's journal backend (the
+    reference's always writes the Python one, whose bytes the native
+    backend reproduces)."""
 
     def __init__(self, cfgs, ids=IDS, seed=0, anti_entropy_every=8,
-                 app="kv", net=True):
+                 app="kv", net=True, wal_root=None, native=False,
+                 ckpt_every=1024):
         jcfg, tcfg = cfgs
+        self.cfgs = cfgs
+        self.app = app
+        self.anti_entropy_every = anti_entropy_every
+        self.wal_root = wal_root
+        self.native = native
+        self.wal_kw = dict(checkpoint_every_ticks=ckpt_every)
         self.ids = list(ids)
         self.jlog, self.tlog = [], []
         self.jnet = self.tnet = None
@@ -120,10 +150,12 @@ class Twin:
         self.tapps = {n: tapp() for n in ids}
         self.j = {n: JNode(jcfg, self.ids, n, self.japps[n],
                            self.jnet.messenger(n) if net else None,
+                           wal=self._wal("jax", n),
                            anti_entropy_every=anti_entropy_every)
                   for n in ids}
         self.t = {n: TNode(tcfg, self.ids, n, self.tapps[n],
                            self.tnet.messenger(n) if net else None,
+                           wal=self._wal("torch", n),
                            anti_entropy_every=anti_entropy_every,
                            device="cpu")
                   for n in ids}
@@ -132,6 +164,18 @@ class Twin:
             self.tapps = {n: self.t[n].app for n in ids}
         self.jresp, self.resp = [], []
         self._tags = itertools.count()
+
+    def wal_dir(self, side, nid):
+        return str(self.wal_root / side / nid)
+
+    def _wal(self, side, nid):
+        if self.wal_root is None:
+            return None
+        if side == "jax":
+            return JLogger(self.wal_dir(side, nid), native=False,
+                           **self.wal_kw)
+        return TLogger(self.wal_dir(side, nid), native=self.native,
+                       **self.wal_kw)
 
     # ------------------------------------------------------------- checks
     def check_node(self, nid):
@@ -167,6 +211,17 @@ class Twin:
             self.check_node(nid)
         self.check_wire()
         self.check_apps()
+
+    def check_wal(self, nids=None):
+        """Every journal and snapshot file of each node is byte-equal to
+        the reference's."""
+        for nid in nids or self.ids:
+            a = wal_files(self.wal_dir("jax", nid))
+            b = wal_files(self.wal_dir("torch", nid))
+            assert [n for n, _ in a] == [n for n, _ in b], nid
+            for (name, x), (_, y) in zip(a, b):
+                assert x == y, (nid, name)
+            assert a, nid
 
     # ------------------------------------------------------------- driving
     def both(self, nid, method, *args, **kw):
@@ -231,6 +286,48 @@ class Twin:
         for other in self.j:
             self.set_alive(other, self.ids.index(nid), False)
 
+    def drop_backlog(self, nid):
+        """Discard what the wire still holds for or from a dead node (the
+        transport's retries exhausted over a long outage)."""
+        for net in (self.jnet, self.tnet):
+            net.drop_pending(dst=nid)
+            net.drop_pending(src=nid)
+
+    def recover(self, nid, peer_streams=(None, None), sync=True, **kw):
+        """Rebuild node ``nid`` from its own WAL in both packages (fresh
+        apps), re-attach it to the wire and, with ``sync``, ask its peers
+        for full frames; the survivors mark it alive again."""
+        japp, tapp = APPS[self.app]
+        ja, ta = japp(), tapp()
+        jcfg, tcfg = self.cfgs
+        jn = jrecover(jcfg, self.ids, nid, ja, self.wal_dir("jax", nid),
+                      native=False, peer_stream=peer_streams[0], **kw)
+        tn = trecover(tcfg, self.ids, nid, ta, self.wal_dir("torch", nid),
+                      native=self.native, peer_stream=peer_streams[1],
+                      device="cpu", **kw)
+        self.japps[nid], self.tapps[nid] = ja, ta
+        if self.app == "device":
+            self.japps[nid], self.tapps[nid] = jn.app, tn.app
+        self.j[nid], self.t[nid] = jn, tn
+        self.check_node(nid)
+        self.check_apps()
+        if self.jnet is not None:
+            jn.attach_messenger(self.jnet.messenger(nid))
+            tn.attach_messenger(self.tnet.messenger(nid))
+            for other in self.j:
+                if other != nid:
+                    self.set_alive(other, self.ids.index(nid), True)
+            if sync:
+                self.both(nid, "request_sync")
+        return tn
+
+    def cross_recover(self, nid, tmp, ids=None):
+        """Each package recovers the other's copy of node ``nid``'s WAL
+        (``ids``: the boot topology, when the universe grew since)."""
+        cross_recover_dirs(self.cfgs, list(ids or self.ids), nid,
+                           APPS[self.app], self.wal_dir("jax", nid),
+                           self.wal_dir("torch", nid), tmp)
+
     def partition(self, *sides):
         for net in (self.jnet, self.tnet):
             net.partition(*sides)
@@ -243,6 +340,53 @@ class Twin:
         for side in (self.j, self.t):
             for n in side.values():
                 n.close()
+
+
+def cross_recover_dirs(cfgs, ids, nid, apps, jdir, tdir, tmp, **kw):
+    """Each package recovers the other's copy of one node's WAL directory
+    (``jdir`` written by the reference, ``tdir`` by the port) to the state
+    its own package recovers from its own copy; ``apps`` are the two
+    packages' app factories."""
+    jcfg, tcfg = cfgs
+    japp, tapp = apps
+    shutil.copytree(jdir, tmp / "jax" / nid)
+    shutil.copytree(tdir, tmp / "torch" / nid)
+    own_j = jrecover(jcfg, ids, nid, japp(), str(jdir), native=False, **kw)
+    own_t = trecover(tcfg, ids, nid, tapp(), str(tdir), native=False,
+                     device="cpu", **kw)
+    t_of_j = trecover(tcfg, ids, nid, tapp(), str(tmp / "jax" / nid),
+                      native=False, device="cpu", **kw)
+    j_of_t = jrecover(jcfg, ids, nid, japp(), str(tmp / "torch" / nid),
+                      native=False, **kw)
+    for jn, tn in ((own_j, own_t), (own_j, t_of_j), (j_of_t, own_t)):
+        assert_same_node(jn, tn)
+    for n in (own_j, own_t, t_of_j, j_of_t):
+        n.wal.close()
+
+
+def assert_same_node(jn, tn):
+    """A reference node and a port node hold equal state, host bookkeeping
+    and app state."""
+    assert jn.tick_num == tn.tick_num
+    assert jn.members == tn.members
+    for f, a, b in zip(jst.PaxosState._fields, jn.state,
+                       tst.state_to_numpy(tn.state)):
+        a = np.asarray(a)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    if jn.kv is not None:
+        for f, a, b in zip(jdkv.DeviceKVState._fields, jn.kv, tn.kv):
+            assert np.array_equal(np.asarray(a), b.numpy()), f
+    assert np.array_equal(np.asarray(jn._coord_view), tn._coord_view)
+    assert dict(jn.rows.items()) == dict(tn.rows.items())
+    assert jn._next_seq == tn._next_seq
+    assert jn._tainted_rows == tn._tainted_rows
+    assert sorted(jn.outstanding) == sorted(tn.outstanding)
+    assert dict(jn.payloads.items()) == dict(tn.payloads.items())
+    assert {k: list(v) for k, v in jn._queues.items() if v} == \
+        {k: list(v) for k, v in tn._queues.items() if v}
+    assert sorted(jn._paused) == sorted(tn._paused)
+    if hasattr(jn.app, "db"):
+        assert jn.app.db == tn.app.db
 
 
 # ----------------------------------------------------- test_modeb.py cases
@@ -442,18 +586,19 @@ def test_modeb_fast_takeover_beats_full_prepare():
     assert fast_coord == 1
 
 
-# ---------------------------------------------------- refusals and expand
-def test_wal_is_refused_and_expansion_grows_both_packages():
-    _, tcfg = make_cfgs()
-    with pytest.raises(NotImplementedError, match="durability slice"):
-        TNode(tcfg, IDS, "N0", trep.KVApp(), wal=object(), device="cpu")
-    tw = Twin(make_cfgs(), net=False)
+# ------------------------------------------------------ a WAL and expand
+def test_wal_is_accepted_and_expansion_grows_both_packages(tmp_path):
+    """A node takes a ``ModeBLogger``; the expansion grows both packages'
+    nodes alike and journals the same ``OP_EXPAND`` bytes."""
+    tw = Twin(make_cfgs(), net=False, wal_root=tmp_path)
+    assert all(isinstance(n.wal, TLogger) for n in tw.t.values())
     tw.create("svc")
     for nid in IDS:
         tw.both(nid, "expand_universe", ["N3"])
         tw.check_node(nid)
         assert tw.t[nid].state.exec_slot.shape[0] == 4
         assert tw.t[nid].R == 4 and not tw.t[nid].alive[3]
+    tw.check_wal()
 
 
 # ------------------------------------ the port alone over real sockets
