@@ -36,9 +36,9 @@ the kernels are built for sm_90a).  It
 6. cluster phase: the port's ``InProcessCluster`` with 5 actives and 3
    reconfigurators on loopback ports, 2^20 rows on each plane (``KVApp``,
    3 replicas per name), driven through ``ReconfigurableAppClient``:
-   1,024 names created in batches, one PUT each through batched sends,
-   every name read back (128 of them one at a time for latency), 16 names
-   reconfigured onto a rotated 3-of-5 set, 16 deleted, the survivors read
+   256 names created in batches, one PUT each through batched sends,
+   every name read back (32 of them one at a time for latency), 8 names
+   reconfigured onto a rotated 3-of-5 set, 8 deleted, the survivors read
    back again and their app states held equal at every member.  Every tick
    of both planes must launch 5 gathers and 1 match;
 7. planes phase, two legs: ``mixed-1M`` ticks register_bench.py's mixed
@@ -93,7 +93,28 @@ the kernels are built for sm_90a).  It
    coordinator crash on three durable nodes with real restarts; every
    acked write reads back on every node.  Every node tick, fast
    re-election on or off, live or replayed, must launch 5 gathers and 1
-   match.
+   match;
+11. chain Mode B and server phase: ``chain-modeb-128k`` runs the chain
+   deployment ``ModeBServer(coordinator="chain")`` builds — three
+   ``ChainModeBNode``s on loopback ``Messenger``s with 2^17-row states,
+   ``ChainBLogger`` on the native journal (an fsync a tick): 2^13 chains
+   created one ``create_group`` a name, a checkpoint, a hot wave of 4
+   rounds of PUTs entering at every node (two thirds forwarded to the
+   head), 2^13 chains a round, the tail C2 crashed after round 2 (the
+   commit point moves to C1; the last two rounds on 2^10 chains),
+   recovered with ``recover_chain_modeb`` to its pre-crash state field by
+   field, rejoined, repaired by checkpoint transfers and serving; C0's
+   first ticks held against the CPU.
+   ``server-128k`` boots six ``ModeBServer``s (3 actives, 3
+   reconfigurators, 2^17 rows a plane, durable, failure detectors on, the
+   scrape endpoint on one active) and drives them through the client:
+   16 names in batches, a PUT and a read each (8 serial), 2
+   reconfigurations and 2 deletes, the coordinator's server closed (a PUT
+   commits once the failure detectors declare it dead) and re-opened from
+   its log dir, every name read back, one ``/metrics`` scrape.
+   ``server-chain`` does the same with chain-coordinated actives (8
+   names).  Every chain node tick, live or replayed, must launch 1 gather
+   and no match; every Paxos Mode B node tick of the servers 5 and 1.
 
 The kernels phase also holds both kernels against their plain versions at
 the narrow widths sparse replay gives them (A=8 groups, W=4), at the
@@ -103,8 +124,8 @@ planes (R=5 and R=3, W=4, P=4, G=2^20), and at the planes phase's shapes
 (the W=1 register planes at G=917,504 and G=2^17, the log planes at W=8,
 G=2^17, P=1 and P=4), the chain cluster's reconfigurator plane (R=3,
 W=4, G=2^17), the chain tick's one gather (three rings over a
-per-replica index) at chain-1M, chain-128k and the chain cluster's active
-plane, and a fast re-election tick's carryover launch (eight ``[W, G]``
+per-replica index) at chain-1M, chain-128k, the chain cluster's active
+plane and a chain Mode B node (R=3, W=4, G=2^17), and a fast re-election tick's carryover launch (eight ``[W, G]``
 arrays) at the Mode B node's widths.
 
 It prints the card, the build, each phase's numbers, the run's total
@@ -372,6 +393,7 @@ def path_launches(pg, path: str, n_ticks: int, planes: int = 1) -> dict:
 #: manager and its dense replay), and the cluster's two 2^20-row planes at
 #: the default W=4, P=4 (5 actives, 3 reconfigurators); the 2^17-row W=4
 #: P=4 shape is also every live and replayed node tick of modeb-wal-128k
+#: and of the servers' Paxos planes (server-128k's actives, every RC plane)
 PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
                (3, 8, 1 << 17, 2, "replay/manager 128k: "),
                (5, 4, 1 << 20, 4, "cluster AR R=5 W=4: "),
@@ -380,15 +402,17 @@ PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
                (3, 1, 917_504, 1, "mixed reg W=1 P=1: "),
                (3, 8, 1 << 17, 4, "reads log 128k P=4: "),
                (3, 1, 1 << 17, 4, "reads reg W=1 128k P=4: "),
-               (3, 4, 1 << 17, 4, "chain cluster RC, modeb-wal and its "
-                "replay R=3 W=4 128k: "))
+               (3, 4, 1 << 17, 4, "chain cluster RC, modeb-wal, its "
+                "replay and the servers' planes R=3 W=4 128k: "))
 
 #: (R, W, G, label prefix) of the chain tick's one gather launch: its three
-#: rings over the per-replica window index, at chain-1M, chain-128k and the
-#: chain cluster's active plane (5 actives, the default W=4)
+#: rings over the per-replica window index, at chain-1M, chain-128k, the
+#: chain cluster's active plane (5 actives, the default W=4) and a chain
+#: Mode B node (chain-modeb-128k, server-chain's actives: 3 nodes, W=4)
 CHAIN_SHAPES = ((3, 8, 1 << 20, "chain 1M: "),
                 (3, 8, 1 << 17, "chain 128k: "),
-                (5, 4, 1 << 17, "chain cluster AR R=5 W=4: "))
+                (5, 4, 1 << 17, "chain cluster AR R=5 W=4: "),
+                (3, 4, 1 << 17, "chain Mode B node R=3 W=4 128k: "))
 
 
 def chain_case(torch, dev, R, W, G, prefix):
@@ -2814,11 +2838,13 @@ def _pct(xs, q):
 
 class _Launches:
     """Launch counts of one main path read in segments: each segment sets
-    the counts to 0 before it runs and adds them after, against 5 gathers
-    + 1 match per node tick of the segment."""
+    the counts to 0 before it runs and adds them after, against
+    ``gathers`` gathers + ``matches`` matches per node tick of the segment
+    (5 + 1 a Paxos Mode B node tick, 1 + 0 a chain one)."""
 
-    def __init__(self, pg, on):
+    def __init__(self, pg, on, gathers=5, matches=1):
         self.pg, self.on = pg, on
+        self.per_tick = {"gather_planes": gathers, "match_planes": matches}
         self.got = {"gather_planes": 0, "match_planes": 0}
         self.ticks = 0
 
@@ -2828,8 +2854,8 @@ class _Launches:
     def end(self, what, node_ticks):
         if not self.on:
             return
-        launches_now(self.pg, what, {"gather_planes": 5 * node_ticks,
-                                     "match_planes": node_ticks})
+        launches_now(self.pg, what, {k: n * node_ticks
+                                     for k, n in self.per_tick.items()})
         for k in self.got:
             self.got[k] += self.pg.launches[k]
         self.ticks += node_ticks
@@ -3350,6 +3376,726 @@ def modeb_phase(torch, pg, dev, G_1m=1 << 20, hot=1 << 14, laggard=1 << 16,
     return out
 
 
+# ---------------------------------------------- chain Mode B and the servers
+
+CHAIN_IDS = ("C0", "C1", "C2")
+
+
+class _ChainReplayProbe:
+    """Counts the replayed chain node ticks of a recovery that runs on this
+    thread: ``recover_chain_modeb``'s replayed tick ends in
+    ``unpack_chain_node_tick``, and live ticks on other threads (a
+    server's tick drivers) are not counted."""
+
+    def __init__(self):
+        from gigapaxos_tpu_torch.chain import modeb as cm
+
+        self.cm, self.inner = cm, cm.unpack_chain_node_tick
+        self.me = threading.get_ident()
+        self.ticks = 0
+
+    def __enter__(self):
+        def counted(*a):
+            if threading.get_ident() == self.me:
+                self.ticks += 1
+            return self.inner(*a)
+
+        self.cm.unpack_chain_node_tick = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cm.unpack_chain_node_tick = self.inner
+
+
+def _same_chain_state(a_np, b_np, what):
+    from gigapaxos_tpu_torch.chain import state as cst
+
+    for f, a, b in zip(cst.ChainState._fields, a_np, b_np):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"{what}: field {f} differs from the pre-crash copy")
+
+
+def _progress(leg, what, **kw):
+    """One progress line of a leg (its numbers so far, so a later failure
+    still leaves them in the log)."""
+    print(f"{leg}: {what} " + json.dumps(kw, default=str), flush=True)
+
+
+def chain_modeb_leg(torch, pg, dev, work, G=1 << 17, n_chains=None,
+                    hot=1 << 14, rounds=4, crash_after=2, outage=1 << 10,
+                    ae=64, cpu_ticks=3, count=None):
+    """``chain-modeb-128k``: the chain deployment ``ModeBServer(
+    coordinator="chain")`` builds (``server.py:57-400``), three
+    ``ChainModeBNode``s on loopback ``Messenger``s, each with its own
+    ``[3, 4, G]`` chain state on ``dev`` (W=4, P=4), a ``KVApp`` and a
+    ``ChainBLogger(native=True)`` (an fsync a tick), anti-entropy every
+    ``ae`` ticks.  ``n_chains`` chains ``[0, 1, 2]`` (default G) created on
+    every node one ``create_group`` a name (the three nodes in parallel),
+    then a checkpoint.  A hot wave of ``rounds`` rounds: one PUT on each
+    of ``hot`` chains a round entering at node ``i % 3`` (two thirds
+    forwarded to the head, C0).  After ``crash_after`` rounds the tail C2
+    crashes at a tick boundary with no frame in flight (after
+    ``tests/test_chain_modeb.py:146-158``): the commit point moves to C1
+    and the other rounds commit on C0 and C1, on the first ``outage``
+    chains (a depth cut: C2 never saw those requests' payloads, so it
+    repairs each such chain by a checkpoint transfer, 16 a tick, as the
+    reference does); C2 recovers with
+    ``recover_chain_modeb`` (its replayed state held equal to its
+    pre-crash copy, field by field), rejoins with ``request_sync()`` and
+    serves; every acked PUT reads back at every node.  C0's first
+    ``cpu_ticks`` node ticks are held against the CPU.  ``count``
+    (default: on a CUDA device) checks 1 gather and no match per live and
+    per replayed node tick."""
+    from gigapaxos_tpu_torch.chain import modeb as cm
+    from gigapaxos_tpu_torch.chain import state as cst
+    from gigapaxos_tpu_torch.chain.modeb_logger import (ChainBLogger,
+                                                        recover_chain_modeb)
+    from gigapaxos_tpu_torch.chain.tick import ChainInbox
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.modeb.logger import OP_FRAME
+    from gigapaxos_tpu_torch.net.messenger import Messenger, NodeMap
+    from gigapaxos_tpu_torch.wal.logger import OP_TICK
+
+    count = dev.type == "cuda" if count is None else count
+    n_chains = G if n_chains is None else n_chains
+    live_l = _Launches(pg, count, gathers=1, matches=0)
+    replay_l = _Launches(pg, count, gathers=1, matches=0)
+    cfg = modeb_cfg(G)
+    W, P = cfg.paxos.window, cfg.paxos.proposals_per_tick
+    dirs = {n: os.path.join(work, n) for n in CHAIN_IDS}
+    nodemap = NodeMap()
+    msgs, nodes = {}, {}
+    tally = {n: {} for n in CHAIN_IDS}
+    fsync_ms = []
+
+    def messenger(nid):
+        msgs[nid] = Messenger(nid, ("127.0.0.1", 0), nodemap)
+        nodemap.add(nid, "127.0.0.1", msgs[nid].port)
+        return msgs[nid]
+
+    def instrument(nid, n):
+        _journal_tally(n.wal, tally[nid])
+        _timed(n.wal, "log_inbox", fsync_ms)
+        return n
+
+    for nid in CHAIN_IDS:
+        messenger(nid)
+    out = {"G": G, "W": W, "P": P, "chains": n_chains,
+           "anti_entropy_every": ae, "sync_every_ticks": 1}
+    try:
+        for nid in CHAIN_IDS:
+            nodes[nid] = instrument(nid, cm.ChainModeBNode(
+                cfg, list(CHAIN_IDS), nid, KVApp(), msgs[nid],
+                wal=ChainBLogger(dirs[nid], native=True),
+                anti_entropy_every=ae, device=dev))
+        check(all(n.wal.backend == "native" for n in nodes.values()),
+              "chain-modeb: the native journal did not open")
+        c0 = nodes["C0"]
+        probe = {"k": 0, "cpu_equal": 0}
+        inner = c0._tick_packed
+
+        def packed(state, inbox):
+            k = probe["k"]
+            probe["k"] += 1
+            before = None
+            if k < cpu_ticks:
+                before = (cst.ChainState(*(t.cpu().clone() for t in state)),
+                          ChainInbox(*(t.cpu().clone() for t in inbox)))
+            new, flat = inner(state, inbox)
+            if before is not None:
+                cs, cflat = cm.chain_node_tick_packed(c0.r)(*before)
+                check(torch.equal(cflat, flat.cpu()), f"chain-modeb: C0 "
+                      f"tick {k}'s packed outbox differs from the CPU's")
+                for f, a, b in zip(cst.ChainState._fields, new, cs):
+                    check(torch.equal(a.cpu(), b), f"chain-modeb: C0 tick "
+                          f"{k} field {f} differs from the CPU's")
+                probe["cpu_equal"] += 1
+            return new, flat
+
+        c0._tick_packed = packed
+        names = [f"c{i}" for i in range(n_chains)]
+        errors = []
+
+        def create_all(n):
+            try:
+                made = sum(n.create_group(nm, [0, 1, 2]) for nm in names)
+                if made != n_chains:
+                    errors.append(f"{n.node_id} created {made}")
+            except Exception as e:  # surfaced by the check below
+                errors.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=create_all, args=(n,))
+                   for n in nodes.values()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["create_s"] = time.perf_counter() - t0
+        check(not errors, f"chain-modeb create: {errors}")
+        out["creates_per_s_per_node"] = n_chains / out["create_s"]
+        # a deployment past its first checkpoint: recovery reads the
+        # snapshot instead of replaying every create one by one
+        t0 = time.perf_counter()
+        for n in nodes.values():
+            n.wal.checkpoint()
+        out["checkpoint_s"] = time.perf_counter() - t0
+        _progress("chain-modeb-128k", "created", create_s=out["create_s"],
+                  checkpoint_s=out["checkpoint_s"])
+        run = _ModeBRun(nodes)
+        ticks = {"n": 0}
+        spin = run.spin
+
+        def counted_spin(k=1, only=None):
+            for _ in range(k):
+                ticks["n"] += sum(1 for m in nodes
+                                  if only is None or m in only)
+                spin(1, only=only)
+
+        run.spin = counted_spin
+        live_l.begin()
+        t_live = 0
+        run.spin(4)  # the full frames of the creates reach every node
+        acked = {}
+        hot_names = names[:hot]
+
+        def quiesce_and_crash(nid):
+            """Let ``nid`` take the frames of the last round, tick it once
+            more (its last fsync), cut it off and copy its state."""
+            n = nodes[nid]
+            others = [m for m in CHAIN_IDS if m != nid]
+            deadline = time.monotonic() + 60
+            while not all(n._frame_applied_tick.get(CHAIN_IDS.index(m))
+                          == nodes[m].tick_num for m in others):
+                check(time.monotonic() < deadline,
+                      f"chain-modeb: {nid} never got the last frames")
+                time.sleep(0.005)
+            n.tick()
+            ticks["n"] += 1
+            msgs[nid].close()
+            t_crash = time.perf_counter()
+            with n.lock:
+                copy = cst.state_to_numpy(n.state)
+                tick_num = n.tick_num
+                n.wal.close()
+            del nodes[nid]
+            for m in others:
+                nodes[m].set_alive(CHAIN_IDS.index(nid), False)
+                nodes[m].m.transport.reset_peer(nid)
+            return copy, tick_num, t_crash
+
+        for t in tally.values():
+            t.clear()
+        fsync_ms.clear()
+        run.tick_ms.clear()
+        wave_nodes = dict(nodes)  # the crashed C2 keeps its own stats
+        fb0 = {nid: n.stats["frame_bytes"] for nid, n in nodes.items()}
+        wave_s, wave_ticks, round_rounds, commits = 0.0, 0, [], 0
+        pre = None
+        for rnd in range(rounds):
+            if rnd == crash_after:
+                pre, pre_tick, t_crash = quiesce_and_crash("C2")
+                tail = nodes["C0"]._live_tail_of(nodes["C0"].rows.row(
+                    hot_names[0]))
+                check(tail == 1, f"chain-modeb: the live tail is {tail} "
+                      "after C2's crash, not C1")
+            done = {}
+            t_round, k_round = time.perf_counter(), ticks["n"]
+            sel = hot_names if pre is None else hot_names[:outage]
+            for i, nm in enumerate(sel):
+                at = CHAIN_IDS[i % 3]
+                at = at if at in nodes else "C1"
+                rid = nodes[at].propose(
+                    nm, f"PUT r{rnd} v{rnd}-{i}".encode(),
+                    lambda _r, resp, i=i: done.__setitem__(i, resp))
+                check(rid is not None, f"chain-modeb: propose refused on {nm}")
+            spins = 0
+            while len(done) < len(sel):
+                run.spin(1)
+                spins += 1
+                check(spins <= 400, f"chain-modeb round {rnd}: {len(done)} "
+                      f"of {len(sel)} answered after 400 rounds")
+            wave_s += time.perf_counter() - t_round
+            wave_ticks += ticks["n"] - k_round
+            round_rounds.append(spins)
+            commits += len(sel)
+            check(all(r == b"OK" for r in done.values()),
+                  f"chain-modeb round {rnd}: a PUT failed")
+            for i, nm in enumerate(sel):
+                acked[(nm, f"r{rnd}")] = f"v{rnd}-{i}"
+            _progress("chain-modeb-128k", f"round {rnd}", commits=len(sel),
+                      spins=spins, s=time.perf_counter() - t_round,
+                      tick_ms_p50=_pct(run.tick_ms, 0.5))
+        frame_b = sum(n.stats["frame_bytes"] - fb0[nid]
+                      for nid, n in wave_nodes.items())
+        tick_b = sum(t.get(OP_TICK, 0) for t in tally.values())
+        jframe_b = sum(t.get(OP_FRAME, 0) for t in tally.values())
+        all_b = sum(sum(t.values()) for t in tally.values())
+        out["wave"] = {
+            "rounds": rounds, "chains": hot, "outage_chains": outage,
+            "commits": commits, "crash_after_round": crash_after,
+            "s": wave_s, "commits_per_s": commits / wave_s,
+            "node_ticks": wave_ticks, "spins_per_round": round_rounds,
+            "node_tick_ms_p50": _pct(run.tick_ms, 0.5),
+            "node_tick_ms_p99": _pct(run.tick_ms, 0.99),
+            "frame_bytes_per_node_tick": frame_b / wave_ticks}
+        out["journal"] = {
+            "bytes_per_node_tick": all_b / wave_ticks,
+            "op_tick_bytes_per_node_tick": tick_b / wave_ticks,
+            "op_frame_bytes_per_node_tick": jframe_b / wave_ticks,
+            "bytes_per_request": all_b / commits,
+            "wal_fsync_ms_p50": _pct(fsync_ms, 0.5),
+            "wal_fsync_ms_p99": _pct(fsync_ms, 0.99)}
+        live_l.end("chain-modeb live ticks", ticks["n"] - t_live)
+
+        # ---- C2 recovers from its own journal and rejoins
+        replay_l.begin()
+        t0 = time.perf_counter()
+        with _ChainReplayProbe() as rp:
+            c2 = recover_chain_modeb(cfg, list(CHAIN_IDS), "C2", KVApp(),
+                                     dirs["C2"], native=True, device=dev)
+        replay_s = time.perf_counter() - t0
+        _progress("chain-modeb-128k", "recovered", replay_s=replay_s,
+                  ticks=rp.ticks)
+        replay_l.end("chain-modeb replay", rp.ticks)
+        check(c2.tick_num == pre_tick, f"chain-modeb replay: tick "
+              f"{c2.tick_num}, crashed at {pre_tick}")
+        _same_chain_state(pre, cst.state_to_numpy(c2.state),
+                          "chain-modeb replay")
+        # the survivors' transports drop what they queued for C2 over the
+        # outage (their retries exhausted, as in a long outage): C2 learns
+        # the outage rounds from ring copies and checkpoint transfers
+        for m in ("C0", "C1"):
+            nodes[m].m.transport.reset_peer("C2")
+        nodes["C2"] = instrument("C2", c2)
+        c2.attach_messenger(messenger("C2"))
+        for m in ("C0", "C1"):
+            nodes[m].set_alive(2, True)
+        c2.request_sync()
+        live_l.begin()
+        t_live = ticks["n"]
+        first = {}
+        c2.propose(names[-1], b"PUT p probe",
+                   lambda _r, resp: first.__setitem__("resp", resp))
+        spins = 0
+        while "resp" not in first:
+            run.spin(1)
+            spins += 1
+            check(spins <= 400, "chain-modeb: C2 never served its probe")
+        check(first["resp"] == b"OK", f"chain-modeb probe: {first}")
+        first_s = time.perf_counter() - t_crash
+        acked[(names[-1], "p")] = "probe"
+        _progress("chain-modeb-128k", "first served",
+                  s=time.perf_counter() - t_crash)
+        spins = 0
+        db = c2.app.db
+        while any(db.get(k[0], {}).get(k[1]) != v for k, v in acked.items()):
+            run.spin(1)
+            spins += 1
+            check(spins <= 400, f"chain-modeb: C2 never caught up "
+                  f"({len(c2._tainted_rows)} rows tainted)")
+        full_s = time.perf_counter() - t_crash
+        run.spin(2)
+        live_l.end("chain-modeb after the recovery", ticks["n"] - t_live)
+        _read_back(nodes, acked, "chain-modeb")
+        out["recovery"] = {
+            "ticks_replayed": rp.ticks, "replay_s": replay_s,
+            "crash_to_first_served_s": first_s,
+            "crash_to_full_service_s": full_s, "catch_up_rounds": spins,
+            "ckpt_transfers": c2.stats["ckpt_transfers"],
+            "orphan_execs": c2.stats["orphan_execs"]}
+        check(probe["cpu_equal"] == cpu_ticks, "chain-modeb: CPU ticks held")
+        out["cpu_ticks_equal"] = probe["cpu_equal"]
+        out["acked"] = len(acked)
+        out["host_ms_per_node_tick_by_phase"] = {
+            nid: host_phases(nid) for nid in CHAIN_IDS}
+    finally:
+        for m in msgs.values():
+            m.close()
+        for n in list(nodes.values()):
+            with n.lock:
+                if n.wal is not None:
+                    n.wal.close()
+    out["live_node_ticks"] = live_l.ticks
+    out["replayed_node_ticks"] = replay_l.ticks
+    out["launches"] = live_l.result()
+    out["replay_launches"] = replay_l.result()
+    return out
+
+
+SERVER_ACTIVES = ("AR0", "AR1", "AR2")
+SERVER_RCS = ("RC0", "RC1", "RC2")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def server_cfg(G):
+    """``ModeBServer``'s deployment as a properties file gives it: 3
+    actives and 3 reconfigurators at fixed loopback ports, ``G`` rows a
+    plane, the defaults otherwise (W=4, P=4, the failure detector's 0.1 s
+    pings and 3 s timeout, the native journal)."""
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+
+    cfg = GigapaxosTpuConfig()
+    cfg.paxos.max_groups = G
+    for nid in SERVER_ACTIVES:
+        cfg.nodes.actives[nid] = ("127.0.0.1", _free_port())
+    for nid in SERVER_RCS:
+        cfg.nodes.reconfigurators[nid] = ("127.0.0.1", _free_port())
+    return cfg
+
+
+def _tick_hist():
+    """(count, total seconds) of every plane's ``tick_seconds`` series, by
+    (driver, plane)."""
+    from gigapaxos_tpu_torch.obs.metrics import registry
+
+    out = {}
+    for h in registry().find("tick_seconds"):
+        lab = dict(h.labels)
+        out[(lab.get("driver"), lab.get("plane"))] = (h.count, h.total)
+    return out
+
+
+def _scrape_ok(url):
+    """GET ``url``'s ``/metrics`` once: every line parses as 0.0.4 text,
+    and ``tick_seconds`` has a ``driver="modeb"`` series.  -> (bytes,
+    lines)."""
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        check(r.status == 200, f"/metrics answered {r.status}")
+        body = r.read().decode("utf-8")
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+                        r'(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*",?)*'
+                        r'\})? -?(?:[0-9.eE+-]+|Inf|NaN)$')
+    lines = body.splitlines()
+    bad = [ln for ln in lines if ln and not ln.startswith("# ")
+           and not sample.match(ln)]
+    check(not bad, f"/metrics: unparseable lines {bad[:3]}")
+    check(any(ln.startswith("tick_seconds_count{")
+              and 'driver="modeb"' in ln for ln in lines),
+          "/metrics: no tick_seconds series of driver modeb")
+    return len(body), len(lines)
+
+
+def server_leg(torch, pg, dev, work, G=1 << 17, n_names=64, batch=16,
+               serial=16, n_reconf=4, n_delete=4, coordinator="paxos"):
+    """``server-128k`` (``coordinator="paxos"``) and ``server-chain``
+    (``"chain"`` on the actives): six ``ModeBServer``s
+    (``server.py:57-400``) in this process on loopback ports, 3 actives
+    and 3 reconfigurators, ``G`` rows a plane, W=4, P=4, ``KVApp``,
+    durable (``log_dir``), failure detectors on, the scrape endpoint on
+    AR1, driven through the port's ``ReconfigurableAppClient``.
+
+    Paxos: ``n_names`` names created in batches of ``batch``, one PUT each,
+    every name read back (``serial`` of them one at a time for latency),
+    ``n_reconf`` reconfigurations (a name shrunk to two actives, then
+    grown back, for each pair) and ``n_delete`` deletes; then AR0, the coordinator of
+    every three-member name, closes, and a PUT commits on the survivors
+    once their failure detectors alone declare it dead; AR0 re-opens from
+    its log dir (``recover_modeb``) and serves; every name reads back; one
+    ``/metrics`` scrape.  Chain: ``n_names`` names, a PUT and a read
+    through every member, then AR2 (every chain's tail) closes and
+    re-opens from its log dir (``recover_chain_modeb``), and every name
+    reads back.  Counted: every live and replayed node tick of every
+    plane, 5 gathers + 1 match a Paxos Mode B node tick and 1 gather a
+    chain one."""
+    import copy
+
+    from gigapaxos_tpu_torch.client import ClientError, ReconfigurableAppClient
+    from gigapaxos_tpu_torch.server import ModeBServer
+
+    chain = coordinator == "chain"
+    cfg = server_cfg(G)
+    http_cfg = copy.deepcopy(cfg)
+    http_cfg.obs.http_port = 0
+    out = {"G": G, "W": cfg.paxos.window, "P": cfg.paxos.proposals_per_tick,
+           "actives": len(SERVER_ACTIVES), "reconfigurators": len(SERVER_RCS),
+           "coordinator": coordinator, "names": n_names}
+    hist0 = _tick_hist()
+    pg.reset_launches()
+    replayed = {"modeb": 0, "chain_modeb": 0}
+    srv = {}
+
+    def boot(nid):
+        kind = coordinator if nid in SERVER_ACTIVES else "paxos"
+        return ModeBServer(nid, http_cfg if nid == "AR1" else cfg,
+                           log_dir=work, coordinator=kind, device=dev)
+
+    def request_via(client, name, payload, active, timeout):
+        """One request through ``active``, asked again while it answers
+        ``not_active``, or nothing at all."""
+        from gigapaxos_tpu_torch.reconfiguration import packets as pkt
+
+        deadline = time.monotonic() + timeout
+        box = {}
+        while time.monotonic() < deadline:
+            done = threading.Event()
+            box = {}
+
+            def cb(resp, box=box, done=done):
+                box.update(resp)
+                done.set()
+
+            client.send_request(name, payload, cb, active=active)
+            # a send on a link whose peer re-opened can vanish: ask again
+            # after 3 s (a duplicate PUT writes the same value)
+            if not done.wait(min(3.0, max(deadline - time.monotonic(),
+                                          0.5))):
+                continue
+            if box.get("ok"):
+                return pkt.b64d(box.get("response")) or b""
+            if box.get("error") not in ("not_active", "stopped"):
+                break
+            time.sleep(0.1)
+        raise SmokeFailure(f"server: request via {active} failed: {box}")
+
+    t_start = time.perf_counter()
+    client = None
+    try:
+        for nid in SERVER_ACTIVES + SERVER_RCS:
+            srv[nid] = boot(nid)
+        for nid, s in srv.items():
+            check(s.wait_ready(300), f"server {nid} never ticked")
+            for n in (s.node, s.rc_node):
+                if n is not None:
+                    check(n.state.applied.device.type == dev.type
+                          if chain and n is s.node else
+                          n.state.exec_slot.device.type == dev.type,
+                          f"server {nid}: a plane is not on {dev}")
+        out["boot_s"] = time.perf_counter() - t_start
+        client = ReconfigurableAppClient(cfg.nodes)
+        names = [f"s{i}" for i in range(n_names)]
+        value = {n: f"{n}-v1" for n in names}
+        t0 = time.perf_counter()
+        for k in range(0, n_names, batch):
+            resp = client.create_batch(names[k:k + batch], timeout=120)
+            check(resp["ok"], f"server create batch at {k}: "
+                  f"{str(resp)[:300]}")
+        out["names_per_s"] = n_names / (time.perf_counter() - t0)
+        # a create is acked by its primary RC; another RC replica may not
+        # have executed it yet, so ask until every name resolves
+        deadline = time.monotonic() + 120
+        for n in names:
+            while True:
+                try:
+                    client.request_actives(n, force=True)
+                    break
+                except ClientError:
+                    check(time.monotonic() < deadline,
+                          f"server: {n} never resolved after its create")
+                    time.sleep(0.1)
+        _progress(f"server-{coordinator}", "created",
+                  s=time.perf_counter() - t_start)
+
+        def put_all(which):
+            if chain:  # every chain member takes a write in turn
+                for i, n in enumerate(which):
+                    got = request_via(client, n, f"PUT k {value[n]}".encode(),
+                                      SERVER_ACTIVES[i % 3], 120)
+                    check(got == b"OK", f"server PUT {n}: {got!r}")
+                return
+            got = batch_round(client, [(n, f"PUT k {value[n]}".encode())
+                                       for n in which])
+            for n, r in zip(which, got):
+                if r != b"OK":  # a refused PUT is retried until acked
+                    check(client.request(n, f"PUT k {value[n]}".encode(),
+                                         timeout=120) == b"OK",
+                          f"server PUT {n} not acked")
+
+        def read_all(which, what):
+            if chain:
+                got = [client.request(n, b"GET k", timeout=120)
+                       for n in which]
+            else:
+                got = batch_round(client, [(n, b"GET k") for n in which])
+            for n, r in zip(which, got):
+                check(r == value[n].encode(), f"{what}: GET {n} gave {r!r}")
+
+        t0 = time.perf_counter()
+        put_all(names)
+        out["put_req_per_s"] = n_names / (time.perf_counter() - t0)
+        lat = []
+        for n in names[:serial]:
+            t0 = time.perf_counter()
+            r = client.request(n, b"GET k", timeout=120)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(r == value[n].encode(), f"serial GET {n} gave {r!r}")
+        out["serial_requests"] = serial
+        out["serial_p50_ms"] = float(np.percentile(lat, 50))
+        out["serial_p99_ms"] = float(np.percentile(lat, 99))
+        read_all(names[serial:], "server read back")
+        _progress(f"server-{coordinator}", "read back",
+                  s=time.perf_counter() - t_start)
+        live = list(names)
+        if not chain:
+            secs = []
+            for j in range(n_reconf):
+                n = names[j // 2]
+                new = (sorted(set(SERVER_ACTIVES) - {SERVER_ACTIVES[j // 2]})
+                       if j % 2 == 0 else sorted(SERVER_ACTIVES))
+                t0 = time.perf_counter()
+                resp = client.reconfigure(n, new, timeout=120)
+                check(resp["ok"], f"reconfigure {n} onto {new}: {resp}")
+                deadline = time.monotonic() + 120
+                while True:
+                    try:  # an RC replica may lag the committed record
+                        if sorted(client.request_actives(
+                                n, force=True)) == new:
+                            break
+                    except ClientError:
+                        pass
+                    check(time.monotonic() < deadline,
+                          f"{n} is not on {new} after its reconfiguration")
+                    time.sleep(0.1)
+                secs.append(time.perf_counter() - t0)
+                # a fresh value after the epoch change: a recovered node's
+                # app lacks an epoch's seed (ROADMAP, Queue 3)
+                value[n] = f"{n}-e{j + 1}"
+                check(client.request(n, f"PUT k {value[n]}".encode(),
+                                     timeout=120) == b"OK",
+                      f"PUT {n} after its reconfiguration")
+            out["reconfigurations"] = n_reconf
+            out["s_per_reconfiguration"] = statistics.mean(secs)
+            _progress(f"server-{coordinator}", "reconfigured",
+                      s=time.perf_counter() - t_start)
+            gone = names[n_reconf:n_reconf + n_delete]
+            ambiguous = 0
+            t0 = time.perf_counter()
+            for n in gone:
+                resp = client.delete(n, timeout=120)
+                # a retried delete whose first attempt committed late finds
+                # the name gone ("no such name"): the name must not resolve
+                ambiguous += not resp["ok"]
+                try:
+                    client.request_actives(n, force=True)
+                    check(False, f"deleted {n} still resolves ({resp})")
+                except ClientError:
+                    pass
+            out["deletes"] = n_delete
+            out["s_per_delete"] = (time.perf_counter() - t0) / n_delete
+            out["deletes_answered_not_ok"] = ambiguous
+            live = [n for n in names if n not in set(gone)]
+            out["scrape_bytes"], out["scrape_lines"] = _scrape_ok(
+                srv["AR1"].metrics_server.url)
+        _progress(f"server-{coordinator}", "served", **out)
+        # ---- one active closes, then re-opens from its log dir; a
+        # checkpoint first, as a server that ran a while has one
+        victim = "AR2" if chain else "AR0"
+        vnode = srv[victim].node
+        with vnode.lock:
+            vnode.wal.checkpoint()
+        t_close = time.perf_counter()
+        srv.pop(victim).close()
+        if not chain:
+            # the survivors' failure detectors alone take AR0's groups
+            n = live[-1]
+            value[n] = f"{n}-failover"
+            got = request_via(client, n, f"PUT k {value[n]}".encode(),
+                              "AR1", 120)
+            check(got == b"OK", f"server failover PUT {n}: {got!r}")
+            out["close_to_failover_commit_s"] = (time.perf_counter()
+                                                 - t_close)
+        t0 = time.perf_counter()
+        if chain:
+            with _ChainReplayProbe() as rp:
+                srv[victim] = boot(victim)
+            replayed["chain_modeb"] += rp.ticks
+        else:
+            with _ReplayProbe(torch, dev) as rp:
+                srv[victim] = boot(victim)
+            replayed["modeb"] += len(rp.copy_ms)
+        check(srv[victim].wait_ready(300), f"{victim} never ticked again")
+        out["reopen_s"] = time.perf_counter() - t0
+        out["replayed_ticks"] = sum(replayed.values())
+        check(srv[victim].node.tick_num > 0, f"{victim} recovered no ticks")
+        probe_name = live[-1]
+        got = request_via(client, probe_name, b"GET k", victim, 120)
+        check(got == value[probe_name].encode(),
+              f"{victim} after its re-open: GET {probe_name} gave {got!r}")
+        out["close_to_reopened_served_s"] = time.perf_counter() - t_close
+        read_all(live, f"server read back after {victim} re-opened")
+        out["read_back"] = len(live)
+    finally:
+        if client is not None:
+            client.close()
+        for s in srv.values():
+            s.close()
+    out["s"] = time.perf_counter() - t_start
+    hist1 = _tick_hist()
+    ticks = {}
+    for key, (c, tot) in hist1.items():
+        c0, t0 = hist0.get(key, (0, 0.0))
+        if key[1] in SERVER_ACTIVES + SERVER_RCS and c > c0:
+            ticks[key] = (c - c0, tot - t0)
+    pax = sum(c for (d, _p), (c, _t) in ticks.items() if d == "modeb")
+    chn = sum(c for (d, _p), (c, _t) in ticks.items() if d == "chain_modeb")
+    for plane, ids in (("ar", SERVER_ACTIVES), ("rc", SERVER_RCS)):
+        c = sum(v[0] for (d, p), v in ticks.items() if p in ids)
+        tot = sum(v[1] for (d, p), v in ticks.items() if p in ids)
+        out[f"{plane}_node_ticks"] = c
+        out[f"{plane}_ms_per_node_tick"] = tot / c * 1e3 if c else None
+    out["replayed"] = dict(replayed)
+    out["launches"] = None
+    if dev.type == "cuda":
+        g = 5 * (pax + replayed["modeb"]) + chn + replayed["chain_modeb"]
+        out["launches"] = launches_now(
+            pg, f"server ({coordinator}), {pax} + {replayed['modeb']} Paxos "
+            f"and {chn} + {replayed['chain_modeb']} chain node ticks",
+            {"gather_planes": g, "match_planes": pax + replayed["modeb"]})
+    out["host_ms_per_node_tick_by_phase"] = {
+        nid: host_phases(nid) for nid in ("AR0", "RC0")}
+    return out
+
+
+def chain_server_phase(torch, pg, dev, G=1 << 17, n_chains=1 << 13,
+                       hot=1 << 13, rounds=4, n_names=16, serial=8,
+                       n_reconf=2, n_delete=2, chain_names=8):
+    """The three legs of the chain Mode B and server slice: the durable
+    three-node chain deployment, then six servers with the Paxos
+    coordinator and six with chain-coordinated actives.  Depth cuts (a
+    first run at 2^17 chains, 64 and 16 names, 16 serial reads, 4
+    reconfigurations and 4 deletes took 718 s for the three legs on an
+    H100, 700 W; with 2^14 chains, 16 names, 8 serial reads, 2 and 2,
+    the whole run took 973.5 s on one machine and was on course for
+    1,040 s on another): ``n_chains`` chains created and ``hot`` in the
+    wave (a create is a journal record and its fsync: 325–491 a second a
+    node), ``n_names`` Paxos names
+    with ``serial`` serial reads, ``n_reconf`` reconfigurations and
+    ``n_delete`` deletes, ``chain_names`` chain names."""
+    t0 = time.perf_counter()
+    out = {}
+    for leg, fn in (
+            ("chain-modeb-128k", lambda w: chain_modeb_leg(
+                torch, pg, dev, w, G, n_chains=n_chains, hot=hot,
+                rounds=rounds)),
+            ("server-128k", lambda w: server_leg(
+                torch, pg, dev, w, G, n_names=n_names, batch=8,
+                serial=serial, n_reconf=n_reconf, n_delete=n_delete)),
+            ("server-chain", lambda w: server_leg(
+                torch, pg, dev, w, G, n_names=chain_names, serial=serial,
+                coordinator="chain"))):
+        work = tempfile.mkdtemp(prefix=f"chip_smoke_{leg}_")
+        try:
+            t1 = time.perf_counter()
+            out[leg] = fn(work)
+            out[leg]["leg_s"] = time.perf_counter() - t1
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------ profile (opt-in)
 
 def profile_tick(torch, dev, R, W, P, G, exec_budget, lag_budget=1024,
@@ -3492,9 +4238,11 @@ def main(argv=None) -> int:
         launches["replay"] = {k: dense["launches"][k] + sparse["launches"][k]
                               for k in dense["launches"]}
         # depth cut: at 2,048 names and 256 serial requests, the whole run
-        # with the modeb phase took up to 1,024.7 s on an H100 (700 W)
-        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=1024,
-                            serial=128)
+        # with the modeb phase took up to 1,024.7 s on an H100 (700 W); at
+        # 512 and 64 with the chain Mode B and server phase, 973.5 s in one
+        # run and 1,396 s in another
+        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=256,
+                            serial=32, n_reconf=8, n_delete=8)
         clu["card"] = card
         launches["cluster"] = clu["launches"]
         print("cluster " + json.dumps(clu), flush=True)
@@ -3531,6 +4279,13 @@ def main(argv=None) -> int:
             print(leg + " " + json.dumps(mbp[leg]), flush=True)
         print(f"modeb phase {mbp['phase_s']:.1f} s", flush=True)
         stamp("modeb")
+        csp = chain_server_phase(torch, pg, dev)
+        for leg in ("chain-modeb-128k", "server-128k", "server-chain"):
+            csp[leg]["card"] = card
+            print(leg + " " + json.dumps(csp[leg]), flush=True)
+        print(f"chain-modeb and server phase {csp['phase_s']:.1f} s",
+              flush=True)
+        stamp("chain-modeb and servers")
 
         def total(*runs):
             return {k: sum(r[k] for r in runs) for k in launches["tick"]}
@@ -3555,6 +4310,15 @@ def main(argv=None) -> int:
         # the durable leg: live node ticks, and the replayed ones
         launches["modeb_wal"] = mbp["modeb-wal-128k"]["launches"]
         launches["modeb_replay"] = mbp["modeb-wal-128k"]["replay_launches"]
+        # chain over Mode B: the durable deployment's live node ticks and
+        # its replayed ones (1 gather, no match each); the servers: every
+        # node tick of every plane, live or replayed (5 + 1 a Paxos Mode B
+        # node tick, 1 + 0 a chain one)
+        launches["chain_modeb"] = csp["chain-modeb-128k"]["launches"]
+        launches["chain_modeb_replay"] = (
+            csp["chain-modeb-128k"]["replay_launches"])
+        launches["server"] = csp["server-128k"]["launches"]
+        launches["server_chain"] = csp["server-chain"]["launches"]
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)

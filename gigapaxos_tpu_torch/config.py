@@ -1,15 +1,24 @@
-"""Config sections the Mode A and Mode B managers and the control plane
-read.
+"""Config registry: the sections the managers, the Mode B nodes, the
+control plane and the per-process server read, and the properties loader.
 
-Copies of the reference's tuning dataclasses, with the same fields and the
-same defaults, so one set of settings configures either package.  Options
-whose planes have not been ported yet (the mesh, placement) keep their
-fields: the manager raises ``NotImplementedError`` when one is set,
-instead of ignoring it.
+Copies of the reference's dataclasses, with the same fields, the same
+defaults and the same checks, so one properties file configures either
+package.  Options whose planes have not been ported yet (the mesh,
+placement, the serving cells) keep their fields: the manager or the server
+raises ``NotImplementedError`` when one is set, instead of ignoring it.
+
+:func:`load_properties` reads a ``gigapaxos.properties``-style file (the
+``active.*`` / ``reconfigurator.*`` topology lines, ``universe=``, flat
+``section.field=value`` tuning keys), then applies the environment
+overrides ``GPTPU_<SECTION>_<FIELD>`` (e.g. ``GPTPU_PAXOS_WINDOW=16``,
+:func:`apply_env_overrides`); every override path re-runs the dataclass
+checks (:func:`validate`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
@@ -366,11 +375,102 @@ class OverloadConfig:
 
 @dataclass
 class PlacementConfig:
-    """Placement plane switch (demand counters + shard rebalancer).  The
-    plane itself is not ported yet; ``enabled=True`` raises in the
-    manager."""
+    """Placement plane: demand counters + shard rebalancer (placement/).
 
+    A mesh "shard" is a contiguous row range of the groups axis
+    (``G / groups_shards`` rows each, matching ``parallel/mesh.make_mesh``).
+    The placement plane folds per-group demand into EWMA rate counters,
+    detects hot/cold shards against ``skew_threshold``, and live-migrates
+    group rows between shard ranges through the stop/start epoch protocol
+    (placement/migrator.py).  All knobs mirror the demand SPI's rate-limit
+    shape (reconfiguration/demand.py ``min_interval_s`` /
+    ``min_requests_between``).
+    """
+
+    # Master switch: attach demand counters to the manager and (mesh +
+    # compact path) fold the per-group demand EWMA on device inside the
+    # compaction dispatch.
     enabled: bool = False
+    # Per-tick EWMA decay of the per-group demand counter (device fold:
+    # demand' = decay * demand + decided_now).  0.9 ~ a
+    # ten-tick horizon; closer to 1.0 = smoother, slower to react.
+    ewma_decay: float = 0.9
+    # Host-fold sampling cadence: fold accumulated intake into the EWMA
+    # (and refresh shard loads) every this many ticks.
+    sample_every_ticks: int = 8
+    # Rebalance trigger: max/min shard-load ratio above which a plan is
+    # emitted (loads below ``min_shard_load`` count as idle floor, so an
+    # empty shard does not make the ratio infinite).
+    skew_threshold: float = 2.0
+    # Hysteresis: after a plan executes, shard loads must exceed the
+    # threshold by this factor before the NEXT plan (flap damping).
+    hysteresis: float = 1.25
+    # Rate limits, mirroring demand.py's _rate_limited guards.
+    min_interval_ticks: int = 64
+    min_moves_between: int = 0  # reserved: min demand delta between plans
+    # Per-plan cap on migrations (greedy bin-pack picks the hottest groups
+    # first; a huge plan would stall the tick loop on stop/start churn).
+    max_moves_per_plan: int = 4
+    # Idle floor for the skew ratio denominator (EWMA units).
+    min_shard_load: float = 1e-3
+
+    def __post_init__(self) -> None:
+        if not (0.0 < self.ewma_decay < 1.0):
+            raise ValueError(
+                f"placement.ewma_decay must be in (0, 1), got {self.ewma_decay}"
+            )
+        if self.skew_threshold < 1.0:
+            raise ValueError(
+                f"placement.skew_threshold must be >= 1, got {self.skew_threshold}"
+            )
+        if self.hysteresis < 1.0:
+            raise ValueError(
+                f"placement.hysteresis must be >= 1, got {self.hysteresis}"
+            )
+
+
+@dataclass
+class CellsConfig:
+    """Serving-cell host plane (cells/): N crash-isolated Mode A manager
+    processes per host, each owning ``crc32(name) % n_cells`` of the group
+    space with its own tick driver, WAL directory and transport endpoint,
+    under a :class:`cells.CellSupervisor`.
+
+    Properties keys: ``cells.n_cells=4``, ``cells.pin_cores=true``, ... —
+    see README "Serving cells" for sizing guidance (one cell per physical
+    core, minus one for the supervisor/edge).
+    """
+
+    # Master switch for server.py --cells bootstrap (the library API takes
+    # explicit constructor args and ignores this).
+    enabled: bool = False
+    # Cells per host.  0 = auto: max(1, os.cpu_count() - 1).
+    n_cells: int = 0
+    # Per-cell topology (each cell is a full InProcessCluster).
+    n_actives: int = 3
+    n_reconfigurators: int = 1
+    # Pin each cell worker to one core via sched_setaffinity (cell k ->
+    # core k % cpu_count).  Ignored on platforms without affinity support.
+    pin_cores: bool = True
+    # SO_REUSEPORT shared edge port (0 = no edge): every cell binds the same
+    # port and forwards mis-routed first requests to the owner cell, so a
+    # client with no placement table still reaches any group through one
+    # well-known address.
+    edge_port: int = 0
+    # Supervisor heartbeats (EWMA FailureDetection over the control socket).
+    heartbeat_interval_s: float = 0.25
+    heartbeat_timeout_s: float = 3.0
+    # Crash restart policy: exponential backoff base and per-cell cap.
+    restart_backoff_s: float = 0.5
+    max_restarts: int = 8
+    # Graceful SIGTERM drain budget before the supervisor escalates.
+    drain_timeout_s: float = 10.0
+
+    def __post_init__(self) -> None:
+        if self.n_cells < 0:
+            raise ValueError(f"cells.n_cells must be >= 0, got {self.n_cells}")
+        if self.n_actives < 1 or self.n_reconfigurators < 1:
+            raise ValueError("cells need >= 1 active and >= 1 reconfigurator")
 
 
 @dataclass
@@ -447,10 +547,94 @@ class GigapaxosTpuConfig:
     placement: PlacementConfig = field(default_factory=PlacementConfig)
     fd: FailureDetectionConfig = field(default_factory=FailureDetectionConfig)
     ssl: SSLConfig = field(default_factory=SSLConfig)
+    cells: CellsConfig = field(default_factory=CellsConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
     nodes: NodeConfig = field(default_factory=NodeConfig)
+    # WAL directory; None = in-memory only (tests).
+    log_dir: str | None = None
+    # Periodic stats dumps via logging (0 = off; PaxosManager.java:482-494
+    # outstanding-dump analog).  Flat properties key: stats_interval_s=10
+    stats_interval_s: float = 0.0
     # Use the C++ journal backend (csrc/journal.cc) for planes opened from
     # a WAL directory.
     native_journal: bool = True
 
+
+def _parse_scalar(txt: str, ty: type):
+    if ty is bool:
+        return txt.strip().lower() in ("1", "true", "yes", "on")
+    if ty is int:
+        return int(txt)
+    if ty is float:
+        return float(txt)
+    return txt
+
+
+def load_properties(path: str) -> GigapaxosTpuConfig:
+    """Load a gigapaxos.properties-style file.
+
+    Recognized keys: ``active.<ID>=host:port``, ``reconfigurator.<ID>=host:port``
+    and flat tuning keys like ``paxos.window=16`` / ``fd.timeout_s=5``.
+    Unknown keys are ignored (the reference likewise ignores params it does
+    not know, utils/Config.java:150-170).
+    """
+    cfg = GigapaxosTpuConfig()
+    with open(path) as f:
+        for raw in f:
+            line = raw.strip()
+            if not line or line.startswith(("#", "!")):
+                continue
+            if "=" not in line:
+                continue
+            key, val = line.split("=", 1)
+            key, val = key.strip(), val.strip()
+            if key == "universe":
+                cfg.nodes.universe = [x.strip() for x in val.split(",") if x.strip()]
+            elif key.startswith("active."):
+                host, port = val.rsplit(":", 1)
+                cfg.nodes.actives[key[len("active.") :]] = (host, int(port))
+            elif key.startswith("reconfigurator."):
+                host, port = val.rsplit(":", 1)
+                cfg.nodes.reconfigurators[key[len("reconfigurator.") :]] = (
+                    host,
+                    int(port),
+                )
+            elif "." in key:
+                section, fname = key.split(".", 1)
+                sub = getattr(cfg, section, None)
+                if sub is not None and dataclasses.is_dataclass(sub):
+                    for f_ in dataclasses.fields(sub):
+                        if f_.name == fname:
+                            setattr(
+                                sub,
+                                fname,
+                                _parse_scalar(val, type(getattr(sub, fname))),
+                            )
+            elif hasattr(cfg, key):
+                cur = getattr(cfg, key)
+                setattr(cfg, key, _parse_scalar(val, type(cur) if cur is not None else str))
+    apply_env_overrides(cfg)
+    return cfg
+
+
+def apply_env_overrides(cfg: GigapaxosTpuConfig) -> None:
+    """Apply ``GPTPU_<SECTION>_<FIELD>`` environment overrides and re-validate."""
+    for sub_name in ("paxos", "placement", "fd", "ssl", "cells", "obs",
+                     "overload"):
+        sub = getattr(cfg, sub_name)
+        for f_ in dataclasses.fields(sub):
+            env = os.environ.get(f"GPTPU_{sub_name.upper()}_{f_.name.upper()}")
+            if env is not None:
+                setattr(sub, f_.name, _parse_scalar(env, type(getattr(sub, f_.name))))
+    validate(cfg)
+
+
+def validate(cfg: GigapaxosTpuConfig) -> None:
+    """Re-run dataclass validation (setattr bypasses ``__post_init__``)."""
+    for sub_name in ("paxos", "placement", "fd", "ssl", "cells", "obs",
+                     "overload"):
+        sub = getattr(cfg, sub_name)
+        post = getattr(sub, "__post_init__", None)
+        if post is not None:
+            post()

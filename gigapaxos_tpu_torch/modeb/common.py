@@ -1,8 +1,8 @@
 """Shared host plumbing for per-process consensus nodes (paxos + chain).
 
-Mode B node flavors (``modeb/manager.py``'s paxos node, and a chain node
-over the same plumbing) carry the same subtle host-side machinery around
-their protocol kernels; fixes to any of these must land in ONE place:
+Both Mode B node flavors (``modeb/manager.py``, ``chain/modeb.py``) carry
+the same subtle host-side machinery around their protocol kernels; fixes to
+any of these must land in ONE place:
 
 * the rid space (origin-tagged 24-bit sequences) and its regression guard;
 * the bounded payload store and forwarded-rid dedup (``_routed``);

@@ -1,1 +1,3 @@
-"""Host observability: metrics registry and per-tick phase clocks."""
+"""Host observability: the metrics registry, per-tick phase clocks, the
+crash flight recorder, Prometheus text (``prom``), the scrape endpoint
+(``http``) and the scenario timeline (``timeline``)."""

@@ -34,6 +34,9 @@ DRIVER_PHASES: Dict[str, Tuple[str, ...]] = {
               "tally", "execute", "outbox_pack", "egress", "ring_relay"),
     # chain/manager.py ChainManager.tick
     "chain": ("intake", "dispatch", "wal_fsync", "tally", "execute"),
+    # chain/modeb.py ChainModeBNode.tick
+    "chain_modeb": ("intake", "dispatch", "wal_fsync",
+                    "tally", "execute", "outbox_pack", "egress"),
 }
 
 #: The extra phase recorded only under cfg.obs.blocking_phases.

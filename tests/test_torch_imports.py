@@ -26,7 +26,9 @@ def test_import_loads_no_jax_and_no_reference_module():
               "obs.flight", "models.device_kv", "chain", "chain.tick",
               "chain.manager", "wal.chain_logger", "modeb", "modeb.kernel",
               "modeb.manager", "modeb.wire", "modeb.common",
-              "testing.simnet"):
+              "testing.simnet", "chain.modeb", "chain.modeb_logger",
+              "server", "config", "obs.prom", "obs.http", "obs.timeline",
+              "utils.observability"):
         assert f"gigapaxos_tpu_torch.{m}" in mods
     assert _loaded_reference_modules(mods) == ""
 
@@ -55,6 +57,17 @@ def test_modeb_and_simnet_alone_load_no_jax():
     assert _loaded_reference_modules(
         ["gigapaxos_tpu_torch.modeb",
          "gigapaxos_tpu_torch.testing.simnet"]) == ""
+
+
+def test_server_chain_modeb_and_obs_alone_load_no_jax():
+    """The per-process server, chain over Mode B and the scrape plane,
+    imported on their own."""
+    assert _loaded_reference_modules(
+        ["gigapaxos_tpu_torch.server", "gigapaxos_tpu_torch.chain.modeb",
+         "gigapaxos_tpu_torch.chain.modeb_logger",
+         "gigapaxos_tpu_torch.obs.prom", "gigapaxos_tpu_torch.obs.http",
+         "gigapaxos_tpu_torch.obs.timeline",
+         "gigapaxos_tpu_torch.utils.observability"]) == ""
 
 
 IMPORT_RE = re.compile(

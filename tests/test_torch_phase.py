@@ -17,11 +17,13 @@ DRIVER_FILES = {
     "modea": "gigapaxos_tpu_torch/paxos/manager.py",
     "modeb": "gigapaxos_tpu_torch/modeb/manager.py",
     "chain": "gigapaxos_tpu_torch/chain/manager.py",
+    "chain_modeb": "gigapaxos_tpu_torch/chain/modeb.py",
 }
 
 
 def test_port_drivers_are_the_ported_ones():
     assert set(tphase.DRIVER_PHASES) == set(DRIVER_FILES)
+    assert tphase.DRIVER_PHASES == jphase.DRIVER_PHASES
     assert tphase.BLOCKING_PHASE == jphase.BLOCKING_PHASE
 
 
