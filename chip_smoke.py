@@ -36,11 +36,14 @@ the kernels are built for sm_90a).  It
 6. cluster phase: the port's ``InProcessCluster`` with 5 actives and 3
    reconfigurators on loopback ports, 2^20 rows on each plane (``KVApp``,
    3 replicas per name), driven through ``ReconfigurableAppClient``:
-   256 names created in batches, one PUT each through batched sends,
-   every name read back (32 of them one at a time for latency), 8 names
-   reconfigured onto a rotated 3-of-5 set, 8 deleted, the survivors read
-   back again and their app states held equal at every member.  Every tick
-   of both planes must launch 5 gathers and 1 match;
+   128 names created in batches, one PUT each through batched sends,
+   every name read back (32 of them one at a time for latency), 4 names
+   reconfigured onto a rotated 3-of-5 set, 4 deleted, the survivors read
+   back again and their app states held equal at every member; 32 names
+   also go through the DNS edge (an ``A`` query each, answered with the
+   name's actives) and the HTTP edge (a PUT and a GET each, answered as
+   the client is).  Every tick of both planes must launch 5 gathers and 1
+   match;
 7. planes phase, two legs: ``mixed-1M`` ticks register_bench.py's mixed
    shape (2^17 log rows at W=8 beside 917,504 register rows at W=1) through
    ``paxos_tick_health`` with one fresh request per group per tick, once
@@ -71,7 +74,8 @@ the kernels are built for sm_90a).  It
    names).  Each chain tick must launch 1 gather and no match;
 10. modeb phase: ``modeb-1M`` runs benchmarks/modeb_scale.py's shape —
    three ``ModeBNode``s on loopback ``Messenger``s, each with its own
-   2^20-group state on the card (W=4, P=4, anti-entropy every 256 ticks):
+   2^20-group state on the card (W=4, P=4, anti-entropy every 64 ticks,
+   cut from the benchmark's 256 for the run's time):
    bulk create, the election of every group, a warm and a steady wave
    (frame bytes per node tick), a hot wave on 2^14 groups and a mass
    laggard of 2^16 groups that N2 misses and catches up after
@@ -97,10 +101,10 @@ the kernels are built for sm_90a).  It
 11. chain Mode B and server phase: ``chain-modeb-128k`` runs the chain
    deployment ``ModeBServer(coordinator="chain")`` builds — three
    ``ChainModeBNode``s on loopback ``Messenger``s with 2^17-row states,
-   ``ChainBLogger`` on the native journal (an fsync a tick): 2^13 chains
+   ``ChainBLogger`` on the native journal (an fsync a tick): 2^12 chains
    created one ``create_group`` a name, a checkpoint, a hot wave of 4
    rounds of PUTs entering at every node (two thirds forwarded to the
-   head), 2^13 chains a round, the tail C2 crashed after round 2 (the
+   head), 2^12 chains a round, the tail C2 crashed after round 2 (the
    commit point moves to C1; the last two rounds on 2^10 chains),
    recovered with ``recover_chain_modeb`` to its pre-crash state field by
    field, rejoined, repaired by checkpoint transfers and serving; C0's
@@ -108,13 +112,29 @@ the kernels are built for sm_90a).  It
    ``server-128k`` boots six ``ModeBServer``s (3 actives, 3
    reconfigurators, 2^17 rows a plane, durable, failure detectors on, the
    scrape endpoint on one active) and drives them through the client:
-   16 names in batches, a PUT and a read each (8 serial), 2
+   8 names in batches, a PUT and a read each (4 serial), 2
    reconfigurations and 2 deletes, the coordinator's server closed (a PUT
    commits once the failure detectors declare it dead) and re-opened from
    its log dir, every name read back, one ``/metrics`` scrape.
-   ``server-chain`` does the same with chain-coordinated actives (8
+   ``server-chain`` does the same with chain-coordinated actives (4
    names).  Every chain node tick, live or replayed, must launch 1 gather
-   and no match; every Paxos Mode B node tick of the servers 5 and 1.
+   and no match; every Paxos Mode B node tick of the servers 5 and 1;
+12. cells, transaction and capacity phase: ``cells-1M`` starts a
+   ``CellSupervisor`` of 4 cells (each a journaled ``InProcessCluster`` of
+   3 actives and 1 reconfigurator with 2^18 rows a plane, so the host
+   holds 2^20 groups) in 4 worker processes on the card, creates 512
+   names through ``sup.make_client()`` with a PUT each, reads every one
+   back, moves 8 names to another cell with ``CellMigrator``, SIGKILLs one
+   cell during traffic (the supervisor restarts it; its WAL replay must
+   give the DB dump taken before the kill and a clean S1 ledger over both
+   incarnations), reads every acked write back and takes one host scrape;
+   the workers' ``stats`` replies carry their kernel launches, 5 gathers
+   and 1 match a plane tick.  ``txn-128k`` runs 2,048 two-name
+   ``DistTransactor`` transactions (a quarter contending) over 4,096 names
+   of a 2^17-row ``PaxosManager``: every committed one shows on both
+   names, every aborted one on neither, no lock is left.
+   ``capacity-128k`` walks ``CapacityProbe``'s ladder over 1,024 groups of
+   a 2^17-row loopback cluster for at most 30 s.
 
 The kernels phase also holds both kernels against their plain versions at
 the narrow widths sparse replay gives them (A=8 groups, W=4), at the
@@ -125,8 +145,9 @@ planes (R=5 and R=3, W=4, P=4, G=2^20), and at the planes phase's shapes
 G=2^17, P=1 and P=4), the chain cluster's reconfigurator plane (R=3,
 W=4, G=2^17), the chain tick's one gather (three rings over a
 per-replica index) at chain-1M, chain-128k, the chain cluster's active
-plane and a chain Mode B node (R=3, W=4, G=2^17), and a fast re-election tick's carryover launch (eight ``[W, G]``
-arrays) at the Mode B node's widths.
+plane and a chain Mode B node (R=3, W=4, G=2^17), a fast re-election
+tick's carryover launch (eight ``[W, G]`` arrays) at the Mode B node's
+widths, and the cells' two planes (R=3 and R=1, W=4, P=4, G=2^18).
 
 It prints the card, the build, each phase's numbers, the run's total
 seconds, one ``{"kernels": ...}`` JSON line, and as its last line
@@ -403,7 +424,9 @@ PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
                (3, 8, 1 << 17, 4, "reads log 128k P=4: "),
                (3, 1, 1 << 17, 4, "reads reg W=1 128k P=4: "),
                (3, 4, 1 << 17, 4, "chain cluster RC, modeb-wal, its "
-                "replay and the servers' planes R=3 W=4 128k: "))
+                "replay and the servers' planes R=3 W=4 128k: "),
+               (3, 4, 1 << 18, 4, "cells AR R=3 W=4 2^18: "),
+               (1, 4, 1 << 18, 4, "cells RC R=1 W=4 2^18: "))
 
 #: (R, W, G, label prefix) of the chain tick's one gather launch: its three
 #: rings over the per-replica window index, at chain-1M, chain-128k, the
@@ -494,9 +517,9 @@ def kernels_phase(torch, pg, dev, R, W, P, G, bw):
             check(torch.equal(a, b), f"{what}: kernel != plain "
                                      f"(max abs err {err})")
             check(torch.equal(s1, b), f"{what}: one-array launch != plain")
-        ms = time_ms(torch, lambda: c.fused(pg), reps=50, flush=flush)
-        k_ms = time_ms(torch, lambda: c.per_array(pg), reps=50, flush=flush)
-        plain_ms = time_ms(torch, lambda: c.plain(pg), reps=10, flush=flush)
+        ms = time_ms(torch, lambda: c.fused(pg), reps=25, flush=flush)
+        k_ms = time_ms(torch, lambda: c.per_array(pg), reps=25, flush=flush)
+        plain_ms = time_ms(torch, lambda: c.plain(pg), reps=5, flush=flush)
         lib_ms = None
         if c.name == "gather_planes":
             idx64 = c.idx.to(torch.int64).expand(
@@ -506,7 +529,7 @@ def kernels_phase(torch, pg, dev, R, W, P, G, bw):
                       f"torch.gather {c.label} differs")
             lib_ms = time_ms(torch, lambda: [torch.gather(a, -2, idx64)
                                              for a in c.arrs],
-                             reps=50, flush=flush)
+                             reps=25, flush=flush)
         # each input (the shared index once) read once, each output written
         # once; a compare and a select for each plane (Wp of arr, E of
         # vals) per output element
@@ -1151,16 +1174,99 @@ def _drain_pipeline(m):
         drain()
 
 
+def dns_a(port, name, zone="gp"):
+    """One DNS ``A`` query for ``name.zone`` to the edge on ``port``:
+    -> (rcode, the answers' IPv4 strings)."""
+    import socket
+    import struct
+
+    q = struct.pack(">HHHHHH", 0x2a2a, 0x0100, 1, 0, 0, 0)
+    for label in f"{name}.{zone}".split("."):
+        q += bytes([len(label)]) + label.encode()
+    q += b"\x00" + struct.pack(">HH", 1, 1)
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.settimeout(60)
+    try:
+        s.sendto(q, ("127.0.0.1", port))
+        data, _ = s.recvfrom(512)
+    finally:
+        s.close()
+    flags, an = struct.unpack(">H", data[2:4])[0], data[6:8]
+    off = 12
+    while data[off]:
+        off += 1 + data[off]
+    off += 5
+    ips = []
+    for _ in range(struct.unpack(">H", an)[0]):
+        off += 2
+        rdlen = struct.unpack(">H", data[off + 8: off + 10])[0]
+        off += 10
+        ips.append(socket.inet_ntoa(data[off: off + rdlen]))
+        off += rdlen
+    return flags & 0xF, ips
+
+
+def edges_leg(client, names, value):
+    """``names`` through the DNS edge (one ``A`` query each) and the HTTP
+    active-replica edge (a PUT of the value the name already holds, then a
+    GET), over ``client``: each DNS answer must be the name's actives'
+    addresses, each HTTP answer the client's own response."""
+    import urllib.parse
+    import urllib.request
+
+    from gigapaxos_tpu_torch.reconfiguration.dns_edge import (
+        DnsReconfigurator)
+    from gigapaxos_tpu_torch.reconfiguration.http_edge import (
+        HttpActiveReplica)
+
+    dns = DnsReconfigurator(client, ("127.0.0.1", 0))
+    http = HttpActiveReplica(client, ("127.0.0.1", 0))
+
+    def get(q):
+        url = (f"http://127.0.0.1:{http.port}/?"
+               + urllib.parse.urlencode(q))
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, json.loads(r.read().decode())
+
+    dns_ms, http_ms = [], []
+    try:
+        for n in names:
+            t0 = time.perf_counter()
+            rcode, ips = dns_a(dns.port, n)
+            dns_ms.append((time.perf_counter() - t0) * 1e3)
+            want = sorted(client.nodemap(a)[0]
+                          for a in client.request_actives(n))
+            check(rcode == 0 and sorted(ips) == want,
+                  f"DNS {n}: rcode {rcode}, {ips} against {want}")
+            t0 = time.perf_counter()
+            put = get({"name": n, "qval": "PUT k " + value[n].decode()})
+            got = get({"name": n, "qval": "GET k"})
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+            mine = client.request(n, b"GET k")
+            check(put[0] == 200 and put[1].get("RVAL") == "OK",
+                  f"HTTP PUT {n}: {put}")
+            check(got[0] == 200 and got[1].get("RVAL") == mine.decode()
+                  == value[n].decode(), f"HTTP GET {n}: {got}, client "
+                                        f"{mine!r}")
+    finally:
+        dns.close()
+        http.close()
+    return {"names": len(names), "dns_p50_ms": statistics.median(dns_ms),
+            "http_put_get_p50_ms": statistics.median(http_ms)}
+
+
 def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
                   put_batch=512, serial=256, n_reconf=16, n_delete=16,
-                  coordinator="paxos"):
+                  coordinator="paxos", edges=0):
     """The port's ``InProcessCluster`` driven through its client: create
     ``n_names`` names, PUT one value each, read every one back (all through
     batches, ``serial`` of them one at a time for latency), reconfigure
     ``n_reconf`` onto a rotated 3-of-5 active set, delete ``n_delete``, read
     the survivors back again and hold every member's app state equal.
     ``coordinator="chain"`` puts the names on chains (the active plane is
-    a ``ChainManager``, whose tick launches one gather and no match).  A
+    a ``ChainManager``, whose tick launches one gather and no match).
+    ``edges`` names also go through the DNS and HTTP edges
+    (:func:`edges_leg`) after the serial reads.  A
     chain manager has no bulk admission (neither package's has), so its
     PUTs and reads go one request at a time."""
     from gigapaxos_tpu_torch.client import ClientError, ReconfigurableAppClient
@@ -1228,6 +1334,8 @@ def cluster_phase(torch, pg, dev, G, n_names=4096, create_batch=256,
         out["serial_requests"] = serial
         out["serial_p50_ms"] = float(np.percentile(lat, 50))
         out["serial_p99_ms"] = float(np.percentile(lat, 99))
+        if edges:
+            out["edges"] = edges_leg(client, names[:edges], value)
 
         pool = sorted(cl.cfg.nodes.active_ids())
         secs = []
@@ -1743,11 +1851,12 @@ def reads_leg(torch, pg, dev, work, G=1 << 17, hot_log=128, hot_reg=128,
 
 
 def planes_phase(torch, pg, dev):
-    """Both legs; the mixed arms in turns (on, off, off, on) so the two
-    are compared within one call, the CPU check in the first of each; the
-    reads leg in a temporary directory removed after."""
-    mixed = [mixed_leg(torch, pg, dev, folds, cpu_ticks=3 if i < 2 else 0)
-             for i, folds in enumerate((True, False, False, True))]
+    """Both legs; the mixed arms in turns (on, then off: cut from on, off,
+    off, on for the run's time) so the two are compared within one call,
+    the CPU check in each; the reads leg in a temporary directory removed
+    after."""
+    mixed = [mixed_leg(torch, pg, dev, folds, cpu_ticks=3)
+             for folds in (True, False)]
     work = tempfile.mkdtemp(prefix="chip_smoke_reads_")
     try:
         reads = reads_leg(torch, pg, dev, work)
@@ -2434,11 +2543,14 @@ class _ModeBRun:
 
 
 def modeb_1m_leg(torch, pg, dev, G=1 << 20, warm=64, hot=1 << 14,
-                 laggard=1 << 16, cpu_ticks=3):
+                 laggard=1 << 16, cpu_ticks=3, ae=64):
     """``modeb-1M`` after ``benchmarks/modeb_scale.py:40-125``: three
     ``ModeBNode``s in this process on loopback ``Messenger``s, each with
     its own ``[3, W, G]`` state on ``dev``, ``NoopApp``-shaped apps,
-    anti-entropy every 256 ticks.  Bulk create, the election of every
+    anti-entropy every ``ae`` ticks (256 in the benchmark; cut to 64 for
+    the run's time: at 2^20 groups the full-state batch is over the 64 MB
+    frame cap, so the births take one anti-entropy cycle, 260 rounds and
+    123 s at 256 on an H100).  Bulk create, the election of every
     group, a warm and a steady wave of ``warm`` commits, a hot wave of one
     request on each of ``hot`` groups, then the mass laggard: N2 stops
     ticking while ``laggard`` groups commit once each, and rejoins with
@@ -2462,7 +2574,7 @@ def modeb_1m_leg(torch, pg, dev, G=1 << 20, warm=64, hot=1 << 14,
         for nid in MODEB_IDS:
             apps[nid] = _exec_count_app()
             nodes[nid] = ModeBNode(cfg, list(MODEB_IDS), nid, apps[nid],
-                                   msgs[nid], anti_entropy_every=256,
+                                   msgs[nid], anti_entropy_every=ae,
                                    device=dev)
         n0, n2 = nodes["N0"], nodes["N2"]
         probe = {"ticks": 0, "copy_ms": [], "bytes": 0, "cpu_equal": 0}
@@ -2529,9 +2641,9 @@ def modeb_1m_leg(torch, pg, dev, G=1 << 20, warm=64, hot=1 << 14,
         st_ticks = run.node_ticks() - t_before
         st_bytes = sum(n.stats["frame_bytes_sent"] for n in nodes.values())
         st_rows = sum(n.stats["frame_groups"] for n in nodes.values())
-        # O(dirty): the anti-entropy slice (G/256 rows) plus the dirty rows
+        # O(dirty): the anti-entropy slice (G/ae rows) plus the dirty rows
         # of the wave, never the G-row state
-        check(st_rows / st_ticks <= G // 256 + 4 * warm,
+        check(st_rows / st_ticks <= G // ae + 4 * warm,
               f"modeb-1M: {st_rows / st_ticks} frame rows a node tick")
         run.tick_ms.clear()
         p, hot_rounds, hot_s = run.wave(
@@ -2582,7 +2694,7 @@ def modeb_1m_leg(torch, pg, dev, G=1 << 20, warm=64, hot=1 << 14,
         # the leg's node ticks are the first of the run's Mode B planes
         phases = {nid: host_phases(nid) for nid in MODEB_IDS}
         return {
-            "G": G, "W": W, "P": P, "anti_entropy_every": 256,
+            "G": G, "W": W, "P": P, "anti_entropy_every": ae,
             "create_bulk_s": create_s,
             "elect": {"rounds": elect_rounds, "s": elect_s},
             "warm": {"commits": warm, "rounds": warm_rounds},
@@ -3350,7 +3462,7 @@ def modeb_wal_leg(torch, pg, dev, work, G=1 << 17, hot=1 << 14,
 def modeb_phase(torch, pg, dev, G_1m=1 << 20, hot=1 << 14, laggard=1 << 16,
                 G_fast=1 << 17, busy_fast=4096, G_dev=1 << 17,
                 busy_dev=4096, dev_ticks=16, cpu_ticks=3, G_wal=1 << 17,
-                hot_wal=1 << 14, gap_wal=1 << 12):
+                hot_wal=1 << 14, gap_wal=1 << 12, chaos_groups=1 << 10):
     """The four Mode B legs; each Mode B path's launches in ``launches``
     (``modeb``: the 1M leg, the fast leg's classical half and the device
     leg; ``modeb_fast``: the fast leg's fast half; ``modeb_wal`` and
@@ -3364,7 +3476,10 @@ def modeb_phase(torch, pg, dev, G_1m=1 << 20, hot=1 << 14, laggard=1 << 16,
     work = tempfile.mkdtemp(prefix="chip_smoke_modeb_wal_")
     try:
         t1 = time.perf_counter()
-        wal = modeb_wal_leg(torch, pg, dev, work, G_wal, hot_wal, gap_wal)
+        # chaos groups cut from 2^12 for the run's time (the degraded
+        # recovery's taint repair took 512 rounds, 45.4 s, on an H100)
+        wal = modeb_wal_leg(torch, pg, dev, work, G_wal, hot_wal, gap_wal,
+                            chaos_groups=chaos_groups)
         wal["leg_s"] = time.perf_counter() - t1
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4058,9 +4173,9 @@ def server_leg(torch, pg, dev, work, G=1 << 17, n_names=64, batch=16,
     return out
 
 
-def chain_server_phase(torch, pg, dev, G=1 << 17, n_chains=1 << 13,
-                       hot=1 << 13, rounds=4, n_names=16, serial=8,
-                       n_reconf=2, n_delete=2, chain_names=8):
+def chain_server_phase(torch, pg, dev, G=1 << 17, n_chains=1 << 12,
+                       hot=1 << 12, rounds=4, n_names=8, serial=4,
+                       n_reconf=2, n_delete=2, chain_names=4):
     """The three legs of the chain Mode B and server slice: the durable
     three-node chain deployment, then six servers with the Paxos
     coordinator and six with chain-coordinated actives.  Depth cuts (a
@@ -4068,7 +4183,9 @@ def chain_server_phase(torch, pg, dev, G=1 << 17, n_chains=1 << 13,
     reconfigurations and 4 deletes took 718 s for the three legs on an
     H100, 700 W; with 2^14 chains, 16 names, 8 serial reads, 2 and 2,
     the whole run took 973.5 s on one machine and was on course for
-    1,040 s on another): ``n_chains`` chains created and ``hot`` in the
+    1,040 s on another; with the cells, transaction and capacity legs
+    1,234 s, so 2^12 chains, 8 names, 4 serial reads and 4 chain names):
+    ``n_chains`` chains created and ``hot`` in the
     wave (a create is a journal record and its fsync: 325–491 a second a
     node), ``n_names`` Paxos names
     with ``serial`` serial reads, ``n_reconf`` reconfigurations and
@@ -4092,6 +4209,420 @@ def chain_server_phase(torch, pg, dev, G=1 << 17, n_chains=1 << 13,
             out[leg]["leg_s"] = time.perf_counter() - t1
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------- cells, txn, capacity
+
+def _pmap(fn, items, threads=32):
+    """``fn`` over ``items`` on ``threads`` threads, results in order; the
+    first exception is raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        return list(ex.map(fn, items))
+
+
+def _ms_pcts(lat):
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def _cell_launch_check(pg, dev, what, s0, s1):
+    """The launch counts between two ``stats`` replies of one worker
+    process: 5 gathers and 1 match a tick of either plane.  -> (ticks,
+    launches)."""
+    ticks = (s1["tick"] - s0["tick"]) + (s1["rc_tick"] - s0["rc_tick"])
+    got = {k: s1["launches"][k] - s0["launches"][k] for k in s1["launches"]}
+    if dev.type == "cuda":  # the plain versions run on the CPU
+        check(got == {"gather_planes": 5 * ticks, "match_planes": ticks},
+              f"{what}: launches {got} over {ticks} plane ticks, expected "
+              "5 gathers and 1 match a tick")
+    return ticks, got
+
+
+def cells_leg(torch, pg, dev, work, G=1 << 18, n_cells=4, n_names=512,
+              serial=32, n_move=8, pin=True):
+    """``cells-1M``: a ``CellSupervisor`` of ``n_cells`` cells (3 actives
+    and 1 reconfigurator each, the ``CellsConfig`` defaults; ``G`` rows a
+    plane; journaled; every worker's planes on ``dev``), driven through
+    ``sup.make_client()``: ``n_names`` creates, a PUT each, every one read
+    back, ``serial`` serial GETs; ``n_move`` names moved to another cell
+    with ``CellMigrator`` and read back; the owner cell of the first name
+    drained, dumped and SIGKILLed while PUTs run on the other cells, the
+    supervisor's restart replaying its WAL to the same DB dump and a clean
+    S1 ledger over both incarnations; one host scrape.  Each worker's
+    ``stats`` reply carries its process's kernel launches: every plane
+    tick of every cell launches 5 gathers and 1 match."""
+    from gigapaxos_tpu_torch.cells.migrator import CellMigrator
+    from gigapaxos_tpu_torch.cells.supervisor import CellSupervisor
+    from gigapaxos_tpu_torch.config import CellsConfig
+    from gigapaxos_tpu_torch.testing.chaos import SafetyLedger
+
+    out = {"cells": n_cells, "G": G, "groups_on_host": n_cells * G,
+           "actives": 3, "reconfigurators": 1, "names": n_names}
+    cc = CellsConfig(enabled=True, n_cells=n_cells, n_actives=3,
+                     n_reconfigurators=1, pin_cores=pin,
+                     restart_backoff_s=0.2)
+    t0 = time.perf_counter()
+    sup = CellSupervisor(work, cells=cc, paxos_overrides={"max_groups": G},
+                         ledger=True, device=str(dev), ready_timeout_s=600)
+    try:
+        sup.start()
+    except RuntimeError as e:  # a startup_failed line, or a dead worker
+        print(f"cells: {e}", flush=True)
+        raise SmokeFailure(f"cells-1M: a cell did not start: {e}")
+    client = sup.make_client()
+    try:
+        out["alive_s"] = time.perf_counter() - t0
+        s0 = {k: h.stats() for k, h in sup.cells.items()}
+        names = [f"cn{i}" for i in range(n_names)]
+        value = {n: f"{n}-v1" for n in names}
+
+        def create(n):
+            return client.create(n, timeout=120).get("ok")
+
+        t1 = time.perf_counter()
+        made = _pmap(create, names)
+        out["names_per_s"] = n_names / (time.perf_counter() - t1)
+        check(all(made), f"{made.count(False)} cell creates failed")
+
+        def put(n):
+            return client.request(n, f"PUT k {value[n]}".encode(),
+                                  timeout=120)
+
+        t1 = time.perf_counter()
+        got = _pmap(put, names)
+        out["put_req_per_s"] = n_names / (time.perf_counter() - t1)
+        check(all(r == b"OK" for r in got), "a cell PUT was not acked")
+
+        def read_back(what):
+            got = _pmap(lambda n: client.request(n, b"GET k", timeout=120),
+                        names)
+            bad = [n for n, r in zip(names, got) if r != value[n].encode()]
+            check(not bad, f"{what}: {len(bad)} names read back wrong, "
+                           f"first {bad[:4]}")
+
+        read_back("cells read back")
+        lat = []
+        for n in names[:serial]:
+            t1 = time.perf_counter()
+            r = client.request(n, b"GET k", timeout=60)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            check(r == value[n].encode(), f"serial GET {n} gave {r!r}")
+        out["serial_get"] = _ms_pcts(lat)
+        per_cell = {k: h.stats()["groups"] for k, h in sup.cells.items()}
+        check(sum(per_cell.values()) == n_names,
+              f"groups per cell {per_cell} do not sum to {n_names}")
+        out["groups_per_cell"] = per_cell
+
+        # cross-cell moves
+        mig = CellMigrator(sup, timeout_s=120)
+        victim = sup.router.cell(names[0])
+        movers = [n for n in names[1:] if sup.router.cell(n) != victim]
+        movers = movers[:n_move]
+        secs = []
+        for n in movers:
+            dst = (sup.router.cell(n) + 1) % n_cells
+            t1 = time.perf_counter()
+            ok = mig.migrate(n, dst)
+            secs.append(time.perf_counter() - t1)
+            check(ok, f"migration of {n} to cell {dst} aborted")
+            check(sup.router.cell(n) == dst, f"{n} not routed to {dst}")
+            r = client.request(n, b"GET k", timeout=120)
+            check(r == value[n].encode(), f"moved {n} read {r!r}")
+            check(any(k.startswith(f"{n}#") for k in sup.cells[dst].db()),
+                  f"cell {dst} does not hold {n}")
+        out["moves"] = len(movers)
+        out["s_per_move"] = statistics.mean(secs)
+
+        # SIGKILL during traffic, restart with WAL replay
+        for h in sup.cells.values():
+            check(h.rpc("drain", "drained ", 120).endswith("ok"),
+                  "a cell did not drain")
+        vh = sup.cells[victim]
+        s_kill = vh.stats()
+        pre_db = [vh.db(r) for r in range(3)]
+        pre_ledger = vh.ledger()
+        others = [n for n in names if sup.router.cell(n) != victim]
+        stop, acked, errors = threading.Event(), [], []
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                n = others[i % len(others)]
+                try:
+                    if client.request(n, f"PUT t{i} x".encode(),
+                                      timeout=60) == b"OK":
+                        acked.append((n, f"t{i}"))
+                except Exception as e:  # counted, and checked below
+                    errors.append(repr(e))
+                i += 1
+
+        th = threading.Thread(target=traffic, daemon=True)
+        th.start()
+        time.sleep(0.5)
+        t_kill = time.perf_counter()
+        vh.sigkill()
+        nh = sup.wait_cell_alive(victim, 300)
+        out["kill_to_alive_s"] = time.perf_counter() - t_kill
+        # a request sent into the dead incarnation's connection is lost,
+        # and the client retries it only when its try times out: short
+        # tries, so that the first one the new incarnation sees is timed
+        r, tries = None, 0
+        while r is None and time.perf_counter() - t_kill < 300:
+            tries += 1
+            try:
+                r = client.request(names[0], b"GET k", timeout=3)
+            except Exception:
+                pass
+        out["kill_to_served_s"] = time.perf_counter() - t_kill
+        out["served_after_tries"] = tries
+        check(r == value[names[0]].encode(),
+              f"{names[0]} after the restart read {r!r}")
+        stop.set()
+        th.join(timeout=120)
+        check(not errors, f"traffic on the live cells failed: {errors[:3]}")
+        out["acked_during_kill"] = len(acked)
+        check(sup.restarts[victim] == 1,
+              f"restarts {sup.restarts}, expected one of cell {victim}")
+        post_db = [nh.db(r) for r in range(3)]
+        check(post_db == pre_db, "the restarted cell's DB differs from "
+                                 "its dump before the kill")
+        post_ledger = nh.ledger()
+        led = SafetyLedger()
+        for r_, name, slot, rid, _stop in pre_ledger:
+            led.observe(f"pre/r{r_}", name, slot, rid)
+        for r_, name, slot, rid, _stop in post_ledger:
+            led.observe(f"post/r{r_}", name, slot, rid)
+        check(led.observations > 0, "the S1 ledger is empty")
+        try:
+            led.assert_safe()
+        except AssertionError as e:
+            raise SmokeFailure(f"cells-1M S1 ledger: {e}")
+        out["ledger_observations"] = led.observations
+        got = _pmap(lambda a: client.request(a[0], f"GET {a[1]}".encode(),
+                                             timeout=120), acked)
+        check(all(r == b"x" for r in got),
+              "a PUT acked during the kill did not read back")
+        read_back("cells read back after the moves and the kill")
+
+        t1 = time.perf_counter()
+        body = sup.scrape()
+        out["scrape_ms"] = (time.perf_counter() - t1) * 1e3
+        out["scrape_bytes"] = len(body)
+        for k in range(n_cells):
+            check(f'cell="{k}"' in body, f"the scrape has no cell {k}")
+
+        # kernel launches a plane tick, from each worker's own counters:
+        # the first incarnation of each cell up to the end (the victim up
+        # to its kill), the restarted one from its ready line to the end
+        s1 = {k: h.stats() for k, h in sup.cells.items()}
+        ticks, launches = 0, {"gather_planes": 0, "match_planes": 0}
+        spans = [(k, s0[k], s1[k]) for k in s0 if k != victim]
+        spans.append((victim, s0[victim], s_kill))
+        restarted = s1[victim]
+        for k, a, b in spans:
+            t, n = _cell_launch_check(pg, dev, f"cell {k}", a, b)
+            ticks += t
+            for key in launches:
+                launches[key] += n[key]
+        out["restarted_cell"] = {"cell": victim, "tick": restarted["tick"],
+                                 "rc_tick": restarted["rc_tick"],
+                                 "launches": restarted["launches"]}
+        out["plane_ticks"] = ticks
+        out["launches"] = launches
+        out["launches_per_plane_tick"] = {
+            k: v / max(ticks, 1) for k, v in launches.items()}
+    finally:
+        client.close()
+        sup.stop()
+    check(all(not h.alive() for h in sup.cells.values()),
+          "a cell worker outlived the supervisor's stop")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def txn_leg(torch, pg, dev, G=1 << 17, n_tx=2048, n_names=4096,
+            hot_names=64, contending=0.25, window=128, seed=7):
+    """``txn-128k``: ``DistTransactor`` over a ``PaxosManager`` of ``G``
+    rows on ``dev`` (``TxApp(KVApp())`` replicas, a ``TickDriver``):
+    ``n_tx`` two-name transactions over ``n_names`` names, a quarter of
+    them on pairs drawn from ``hot_names`` shared names (they contend for
+    locks), the rest on disjoint pairs, ``window`` in flight.  Each writes
+    one key on both names; a committed one must show on both, an aborted
+    one on neither, and no lock may be left."""
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.paxos.driver import TickDriver
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+    from gigapaxos_tpu_torch.txn import DistTransactor, TxApp
+
+    cfg = GigapaxosTpuConfig()
+    cfg.paxos.max_groups = G
+    names = [f"tx{i}" for i in range(n_names)]
+    t0 = time.perf_counter()
+    m = PaxosManager(cfg, 3, [TxApp(KVApp()) for _ in range(3)], device=dev)
+    check(m.create_paxos_instances(names, [0, 1, 2]) == n_names,
+          "txn: creates failed")
+    driver = TickDriver(m).start()
+    check(driver.wait_ready(600), "txn: the tick driver never ticked")
+    out = {"G": G, "transactions": n_tx, "names": n_names,
+           "start_s": time.perf_counter() - t0}
+    rng = random.Random(seed)
+    n_hot = int(n_tx * contending)
+    hot = names[n_names - hot_names:]
+    pairs = [tuple(rng.sample(hot, 2)) for _ in range(n_hot)]
+    pairs += [(names[2 * i], names[2 * i + 1]) for i in range(n_tx - n_hot)]
+    rng.shuffle(pairs)
+
+    def coordinate(name, payload, cb):
+        r = m.propose(name, payload, cb)
+        driver.kick()
+        return r
+
+    tx = DistTransactor(coordinate, retry_delay_s=0.02)
+    with m.lock:  # no tick half counted
+        pg.reset_launches()
+        tick0 = m.tick_num
+    results, lat = [None] * n_tx, [0.0] * n_tx
+    slots = threading.Semaphore(window)
+    done = threading.Event()
+    left = [n_tx]
+    lock = threading.Lock()
+
+    def finish(i, t_start):
+        def cb(res):
+            lat[i] = (time.perf_counter() - t_start) * 1e3
+            results[i] = res
+            slots.release()
+            with lock:
+                left[0] -= 1
+                if left[0] == 0:
+                    done.set()
+        return cb
+
+    try:
+        t1 = time.perf_counter()
+        for i, (a, b) in enumerate(pairs):
+            slots.acquire()
+            tx.transact([(a, f"PUT t{i} {i}".encode()),
+                         (b, f"PUT t{i} {i}".encode())],
+                        callback=finish(i, time.perf_counter()))
+        check(done.wait(600), f"txn: {left[0]} transactions never ended")
+        secs = time.perf_counter() - t1
+    finally:
+        driver.stop()
+    ticks = m.tick_num - tick0
+    committed = [r.committed for r in results]
+    out["committed"] = sum(committed)
+    out["aborted"] = sum(r.aborted for r in results)
+    check(out["committed"] + out["aborted"] == n_tx,
+          "txn: a transaction neither committed nor aborted")
+    out["tx_per_s"] = n_tx / secs
+    out.update(_ms_pcts(lat))
+    out["contending"] = n_hot
+    for r_, app in enumerate(m.apps):
+        check(app.locks == {}, f"txn: replica {r_} holds locks "
+                               f"{dict(list(app.locks.items())[:4])}")
+        db = app.app.db
+        for i, ((a, b), ok) in enumerate(zip(pairs, committed)):
+            key = f"t{i}"
+            on = [db.get(f"{n}", {}).get(key) == str(i) for n in (a, b)]
+            check(on == [ok, ok], f"txn {i} on {a},{b}: committed={ok} "
+                                  f"but the writes show as {on}")
+    out["ticks"] = ticks
+    if dev.type == "cuda":
+        out["launches"] = path_launches(pg, "txn", ticks)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def capacity_leg(torch, pg, dev, n_groups=1024, G=1 << 17, init_load=25.0,
+                 factor=1.5, run_s=1.5, ramp_s=30.0):
+    """``capacity-128k``: ``CapacityProbe`` (the TESTPaxos probe) on
+    ``make_loopback_cluster`` (3 actives, 1 reconfigurator, ``NoopApp``,
+    pipelined compact planes of ``G`` rows on ``dev``) over ``n_groups``
+    names: open-loop runs of ``run_s`` seconds from ``init_load`` req/s,
+    the load times ``factor`` after each passing run, for at most
+    ``ramp_s`` seconds; the capacity is the last passing load.  The names
+    are created in batches (the harness creates one at a time)."""
+    from gigapaxos_tpu_torch.testing import (CapacityProbe,
+                                             make_loopback_cluster)
+
+    t0 = time.perf_counter()
+    cluster, client = make_loopback_cluster(n_groups=0, max_groups=G,
+                                            device=dev)
+    out = {"G": G, "groups": n_groups}
+    try:
+        names = [f"g{i}" for i in range(n_groups)]
+        for k in range(0, n_groups, 256):
+            resp = client.create_batch(names[k:k + 256], timeout=120)
+            check(resp["ok"], f"capacity: create batch at {k} failed")
+        probe = CapacityProbe(client, names)
+        out["setup_s"] = time.perf_counter() - t0
+        with cluster.manager.lock, cluster.rc_manager.lock:
+            pg.reset_launches()
+            ticks0 = (cluster.manager.tick_num
+                      + cluster.rc_manager.tick_num)
+        runs, load, t1 = [], init_load, time.perf_counter()
+        while time.perf_counter() - t1 < ramp_s:
+            r = probe.run_once(load, run_s)
+            runs.append({"load": load, "sent": r.sent,
+                         "responded": r.responded, "errors": r.errors,
+                         "response_rate": r.response_rate,
+                         "p50_ms": r.p50_latency_s() * 1e3,
+                         "avg_ms": r.avg_latency_s * 1e3,
+                         "passed": r.passed(load)})
+            if not r.passed(load):
+                break
+            load *= factor
+        passing = [r for r in runs if r["passed"]]
+        check(passing, f"capacity: no run passed, first {runs[:1]}")
+        out["runs"] = runs
+        out["capacity_req_per_s"] = passing[-1]["load"]
+        out["p50_ms_at_capacity"] = passing[-1]["p50_ms"]
+        out["ramp_s"] = time.perf_counter() - t1
+        with cluster.manager.lock, cluster.rc_manager.lock:
+            for m in (cluster.manager, cluster.rc_manager):
+                _drain_pipeline(m)
+            ticks = (cluster.manager.tick_num + cluster.rc_manager.tick_num
+                     - ticks0)
+            if dev.type == "cuda":
+                out["launches"] = path_launches(pg, "capacity", ticks)
+        out["ticks"] = ticks
+    finally:
+        client.close()
+        cluster.close()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def host_plane_phase(torch, pg, dev, card, cells_G=1 << 18, n_cells=4,
+                     n_names=512, txn_G=1 << 17, n_tx=2048, cap_G=1 << 17):
+    """The cells, transaction and capacity legs, each with the launch
+    counts set to 0 just before it and printed as it ends."""
+    t0 = time.perf_counter()
+    out = {}
+
+    def cells(dev_):
+        work = tempfile.mkdtemp(prefix="chip_smoke_cells_")
+        try:
+            return cells_leg(torch, pg, dev_, work, G=cells_G,
+                             n_cells=n_cells, n_names=n_names)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+    for leg, fn in (("cells-1M", cells),
+                    ("txn-128k", lambda d: txn_leg(torch, pg, d, G=txn_G,
+                                                   n_tx=n_tx)),
+                    ("capacity-128k", lambda d: capacity_leg(
+                        torch, pg, d, G=cap_G))):
+        pg.reset_launches()
+        out[leg] = fn(dev)
+        out[leg]["card"] = card
+        print(leg + " " + json.dumps(out[leg]), flush=True)
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -4240,9 +4771,10 @@ def main(argv=None) -> int:
         # depth cut: at 2,048 names and 256 serial requests, the whole run
         # with the modeb phase took up to 1,024.7 s on an H100 (700 W); at
         # 512 and 64 with the chain Mode B and server phase, 973.5 s in one
-        # run and 1,396 s in another
-        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=256,
-                            serial=32, n_reconf=8, n_delete=8)
+        # run and 1,396 s in another; at 256 names, 8 reconfigurations and
+        # 8 deletes with the cells, transaction and capacity legs, 1,234 s
+        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=128,
+                            serial=32, n_reconf=4, n_delete=4, edges=32)
         clu["card"] = card
         launches["cluster"] = clu["launches"]
         print("cluster " + json.dumps(clu), flush=True)
@@ -4262,10 +4794,10 @@ def main(argv=None) -> int:
                               for k in launches["replay"]}
         work = tempfile.mkdtemp(prefix="chip_smoke_kv_chain_")
         try:
-            kvp = device_kv_phase(torch, pg, dev, work,
+            kvp = device_kv_phase(torch, pg, dev, work, ticks_128k=16,
                                   manager_dps=mgr["dec_per_s"])
             stamp("device-kv")
-            chp = chain_phase(torch, pg, dev, work, n_names=128)
+            chp = chain_phase(torch, pg, dev, work, n_names=64)
             stamp("chain")
         finally:
             shutil.rmtree(work, ignore_errors=True)
@@ -4286,6 +4818,10 @@ def main(argv=None) -> int:
         print(f"chain-modeb and server phase {csp['phase_s']:.1f} s",
               flush=True)
         stamp("chain-modeb and servers")
+        hpp = host_plane_phase(torch, pg, dev, card)
+        print(f"cells, txn and capacity phase {hpp['phase_s']:.1f} s",
+              flush=True)
+        stamp("cells, txn and capacity")
 
         def total(*runs):
             return {k: sum(r[k] for r in runs) for k in launches["tick"]}
@@ -4319,6 +4855,12 @@ def main(argv=None) -> int:
             csp["chain-modeb-128k"]["replay_launches"])
         launches["server"] = csp["server-128k"]["launches"]
         launches["server_chain"] = csp["server-chain"]["launches"]
+        # the cells: every plane tick of every cell's first incarnation
+        # (read from the workers' stats), the transactor's manager, the
+        # capacity probe's two planes
+        launches["cells"] = hpp["cells-1M"]["launches"]
+        launches["txn"] = hpp["txn-128k"]["launches"]
+        launches["capacity"] = hpp["capacity-128k"]["launches"]
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)

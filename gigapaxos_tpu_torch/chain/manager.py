@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config import GigapaxosTpuConfig
-from ..device import resolve_device
+from ..device import resolve_device, serial_on_cpu
 from ..models.replicable import Replicable
 from ..types import NO_REQUEST
 from .. import overload as _overload
@@ -261,7 +261,8 @@ class ChainManager:
         pc.mark("intake")
         # dispatch first, journal second: the WAL fsync overlaps the async
         # device step (see paxos/manager.py tick)
-        self.state, packed = chain_tick_packed(self.state, inbox)
+        with serial_on_cpu(self.device):
+            self.state, packed = chain_tick_packed(self.state, inbox)
         pc.mark("dispatch")
         if self.wal is not None:
             self.wal.log_inbox(self.tick_num, self._inbox_alive)

@@ -52,7 +52,7 @@ import torch
 
 from .. import overload as _overload
 from ..config import GigapaxosTpuConfig
-from ..device import resolve_device
+from ..device import resolve_device, serial_on_cpu
 from ..models.replicable import Replicable
 from ..modeb import wire
 from ..modeb.common import RID_MASK, RID_SHIFT, ModeBCommon  # noqa: F401
@@ -562,7 +562,8 @@ class ChainModeBNode(ModeBCommon):
             pc.mark("intake")
             # dispatch first, journal second: the WAL fsync overlaps the
             # asynchronous device step
-            self.state, packed = self._tick_packed(self.state, inbox)
+            with serial_on_cpu(self.device):
+                self.state, packed = self._tick_packed(self.state, inbox)
             pc.mark("dispatch")
             if self.wal is not None:
                 self.wal.log_inbox(self.tick_num, self.alive)

@@ -4,11 +4,25 @@ Every entry point (``paxos.state.init_state``, ``paxos.manager.PaxosManager``,
 the tick helpers that allocate) runs on the GPU unless the caller asks for
 the CPU.  There is no silent fallback: asking for CUDA on a host without a
 usable card raises.
+
+:func:`serial_on_cpu` is the lock a tick program holds while it runs.  On
+the CPU a program is hundreds of small eager ops, each of which drops and
+retakes the interpreter lock; several planes ticking on threads of one
+process (a server's active and RC planes, a cluster, a test's six servers)
+then hand that lock back and forth at every op and each tick takes many
+times its time alone.  One program at a time runs them back to back
+instead.  On CUDA a program only queues launches, and takes no lock.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+#: held by the one CPU tick program running in this process
+_CPU_PROGRAM = threading.RLock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,3 +34,9 @@ def resolve_device(device=None) -> torch.device:
             "port on the CPU"
         )
     return dev
+
+
+def serial_on_cpu(dev: torch.device):
+    """The context a tick program on ``dev`` runs in: the process-wide
+    CPU program lock, or nothing on CUDA."""
+    return _CPU_PROGRAM if dev.type == "cpu" else contextlib.nullcontext()

@@ -43,7 +43,7 @@ import torch
 
 from .. import overload as _overload
 from ..config import GigapaxosTpuConfig
-from ..device import resolve_device
+from ..device import resolve_device, serial_on_cpu
 from ..models.device_kv import DESC as _DESC, DESC_LEN as _DESC_LEN
 from ..models.replicable import Replicable
 from ..net.messenger import Messenger
@@ -950,12 +950,15 @@ class ModeBNode(ModeBCommon):
                 hold = np.zeros(self.G, bool)
                 if self._stalled:
                     hold[list(self._stalled)] = True
-                self.state, self.kv, packed = self._tick_device(
-                    self.state, self.kv, inbox, *self._take_kv_reg(),
-                    hold,
-                )
+                kv_reg = self._take_kv_reg()
+                with serial_on_cpu(self.device):
+                    self.state, self.kv, packed = self._tick_device(
+                        self.state, self.kv, inbox, *kv_reg, hold,
+                    )
             else:
-                self.state, packed = self._tick_packed(self.state, inbox)
+                with serial_on_cpu(self.device):
+                    self.state, packed = self._tick_packed(self.state,
+                                                           inbox)
             pc.mark("dispatch")
             if self.wal is not None:
                 self.wal.log_inbox(self.tick_num, self.alive)

@@ -23,7 +23,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 from .metrics import registry as _registry
 
@@ -130,3 +130,28 @@ class TimelineRecorder:
                 "samples": list(self._samples),
                 "events": list(self._events),
             }
+
+
+def merge_timelines(snaps: Iterable[dict]) -> dict:
+    """Compose per-cell timeline snapshots onto one wall clock: samples
+    stay per-source (series have different columns per cell), events
+    merge into one list sorted by time with a ``node`` tag — the
+    supervisor's ``/timeline`` body."""
+    snaps = [s for s in snaps if s]
+    events: List[dict] = []
+    sources = {}
+    for s in snaps:
+        node = str(s.get("node", "?"))
+        sources[node] = {
+            "t0": s.get("t0"),
+            "interval_s": s.get("interval_s"),
+            "samples": s.get("samples", []),
+        }
+        for ev in s.get("events", []):
+            events.append(dict(ev, node=node))
+    events.sort(key=lambda e: e.get("t", 0.0))
+    return {
+        "t0": min((s.get("t0") or 0.0) for s in snaps) if snaps else 0.0,
+        "sources": sources,
+        "events": events,
+    }

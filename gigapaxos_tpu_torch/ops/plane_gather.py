@@ -15,10 +15,10 @@ hand-written CUDA C++ for Hopper (``csrc/plane_gather.cu``, built by
 
 :func:`gather_planes_cuda` and :func:`match_planes_cuda` are their one-array
 case.  ``ops/window.py`` dispatches on the tensor's device: CPU tensors go
-to the plain PyTorch versions (a select chain over the planes, one array
-at a time), CUDA tensors to the kernel wrapper, which launches or raises.
-There is no fallback between the two.  Each launch adds one to
-``launches[name]``, however many arrays it carries.
+to the plain PyTorch versions (one ``torch.gather`` along the plane axis;
+the match finds its entries first), CUDA tensors to the kernel wrapper,
+which launches or raises.  There is no fallback between the two.  Each
+launch adds one to ``launches[name]``, however many arrays it carries.
 """
 
 from __future__ import annotations
@@ -129,21 +129,42 @@ def _launch(fn, name: str, arrs, outs, *args) -> None:
 
 # ----------------------------------------------------------- gather_planes
 
+def _plain_index(arr_shape, idx: torch.Tensor):
+    """The int64 index of the plain gather broadcast to the output's shape
+    ``[..., J, G]``, and the mask of its out-of-range entries (None when
+    there is none)."""
+    wp = arr_shape[-2]
+    if idx.dim() == 2 or tuple(arr_shape[:-2]) == tuple(idx.shape[:-2]):
+        lead = tuple(arr_shape[:-2])
+    else:
+        lead = tuple(torch.broadcast_shapes(arr_shape[:-2], idx.shape[:-2]))
+    shape = lead + tuple(idx.shape[-2:])
+    bad = (idx < 0) | (idx >= wp)
+    if bad.any():
+        ix = idx.masked_fill(bad, 0).to(torch.int64).expand(shape)
+        return lead, ix, bad.expand(shape)
+    return lead, idx.to(torch.int64).expand(shape), None
+
+
+def _plain_take(arr, lead, ix, bad) -> torch.Tensor:
+    if tuple(arr.shape[:-2]) != lead:
+        arr = arr.expand(lead + tuple(arr.shape[-2:]))
+    out = torch.gather(arr, -2, ix)
+    return out if bad is None else out.masked_fill_(bad, 0)
+
+
 def gather_planes_plain(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain version: a Wp-way select chain per output plane."""
-    wp = arr.shape[-2]
-    shape = torch.broadcast_shapes(arr.shape[:-2] + idx.shape[-2:], idx.shape)
-    res = torch.zeros(shape, dtype=arr.dtype, device=arr.device)
-    for w in range(wp):
-        res = torch.where(idx == w, arr[..., w:w + 1, :], res)
-    return res
+    """Plain version: one ``torch.gather`` along the plane axis, 0 where
+    the index is out of range."""
+    return _plain_take(arr, *_plain_index(arr.shape, idx))
 
 
 def gather_planes_many_plain(arrs: Sequence[torch.Tensor],
                              idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Plain version of the fused gather: :func:`gather_planes_plain` of
-    each array."""
-    return tuple(gather_planes_plain(a, idx) for a in arrs)
+    each array, the index prepared once."""
+    lead, ix, bad = _plain_index(arrs[0].shape, idx)
+    return tuple(_plain_take(a, lead, ix, bad) for a in arrs)
 
 
 def gather_planes_many_cuda(arrs: Sequence[torch.Tensor],
@@ -190,23 +211,33 @@ def gather_planes_cuda(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ match_planes
 
+def _match_entry(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The highest entry ``e`` with ``keys[..., e, g] == idx[j, g]`` as
+    ``[..., J, G]``, -1 where none matches."""
+    e = keys.shape[-2]
+    hit = keys.unsqueeze(-3) == idx.unsqueeze(-2)           # [..., J, E, G]
+    ent = torch.arange(e, dtype=torch.int32, device=keys.device)[:, None]
+    return torch.where(hit, ent, -1).amax(dim=-2)
+
+
 def match_planes_plain(vals: torch.Tensor, keys: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
-    """Plain version: an E-way select chain, entries in ascending order."""
-    res = torch.zeros(vals.shape[:-2] + idx.shape[-2:], dtype=vals.dtype,
-                      device=vals.device)
-    for e in range(vals.shape[-2]):
-        res = torch.where(keys[..., e:e + 1, :] == idx,
-                          vals[..., e:e + 1, :], res)
-    return res
+    """Plain version: the highest matching entry per output lane, then a
+    gather of ``vals`` at it."""
+    return match_planes_many_plain((vals,), keys, idx)[0]
 
 
 def match_planes_many_plain(vals_list: Sequence[torch.Tensor],
                             keys: torch.Tensor,
                             idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Plain version of the fused match: :func:`match_planes_plain` of each
-    vals array."""
-    return tuple(match_planes_plain(v, keys, idx) for v in vals_list)
+    vals array, the matching entries found once."""
+    if vals_list[0].shape[-2] == 0:
+        return tuple(torch.zeros(v.shape[:-2] + idx.shape[-2:],
+                                 dtype=v.dtype, device=v.device)
+                     for v in vals_list)
+    lead, ix, bad = _plain_index(vals_list[0].shape, _match_entry(keys, idx))
+    return tuple(_plain_take(v, lead, ix, bad) for v in vals_list)
 
 
 def match_planes_many_cuda(vals_list: Sequence[torch.Tensor],

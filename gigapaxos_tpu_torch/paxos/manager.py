@@ -49,7 +49,7 @@ import torch
 
 from .. import overload as _overload
 from ..config import GigapaxosTpuConfig
-from ..device import resolve_device
+from ..device import resolve_device, serial_on_cpu
 from ..models.device_kv import DeviceKVApp, fused_compact, init_kv
 from ..models.replicable import Replicable
 from ..obs.metrics import registry as _obsreg
@@ -682,6 +682,41 @@ class PaxosManager:
         self._last_active[row] = self.tick_num
         if self.wal is not None:
             self.wal.log_create(name, members, epoch, register=register)
+        return True
+
+    @_locked
+    def create_paxos_instance_at(
+        self, name: str, members: List[int], epoch: int, row: int,
+        app_seed: Optional[bytes] = None,
+    ) -> bool:
+        """Targeted create at a given free row (cell and placement
+        migration).  Never evicts: a full destination is a planning
+        failure.  ``app_seed`` (the migrated epoch's final checkpoint) is
+        restored into every member's app under the same lock as the birth
+        and journaled with the create (``OP_CREATE_AT``), so replay
+        restores it too.  The row index encodes the plane: a targeted
+        create at a register row lands on the register plane."""
+        if name in self.rows or name in self._paused:
+            return False
+        try:
+            self.rows.alloc_at(name, row)
+        except KeyError:
+            return False  # row occupied or out of range
+        mask = np.zeros((1, self.R), bool)
+        for m in members:
+            mask[0, m] = True
+        pst, prow = self._plane_state(row)
+        st.create_groups(pst, np.array([prow]), mask,
+                         np.array([epoch], np.int32))
+        self._set_member_row(row, mask[0], name)
+        self._stopped_rows.discard(row)
+        self._stopped_np[row] = False
+        self._last_active[row] = self.tick_num
+        if app_seed is not None:
+            for s in members:
+                self.apps[s].restore(name, app_seed)
+        if self.wal is not None:
+            self.wal.log_create_at(name, list(members), epoch, row, app_seed)
         return True
 
     def create_paxos_instances(
@@ -1766,21 +1801,24 @@ class PaxosManager:
         if self._device_app:
             # leases, health and register planes are refused at
             # construction, so the fused KV call is the whole tick
-            self.state, self.kv, packed = fused_compact(
-                self.state, self.kv, inbox, *reg, -1,
-                self._exec_budget, self._lag_budget)
+            with serial_on_cpu(self.device):
+                self.state, self.kv, packed = fused_compact(
+                    self.state, self.kv, inbox, *reg, -1,
+                    self._exec_budget, self._lag_budget)
             lease_pack = health_pack = None
         else:
             # one dispatch covers every combination of planes and folds;
             # absent ones are None (the packed path runs with no budget)
-            (self.state, self.rstate, self._lease, self._rlease,
-             self._health, self._rhealth, pk_l, pk_r, lp_l, lp_r, hp_l,
-             hp_r) = paxos_tick_health(
-                self.state, self.rstate, self._lease, self._rlease,
-                self._health, self._rhealth, inbox, -1,
-                self._exec_budget if self._use_compact else 0,
-                self._lag_budget, self._lease_horizon, self._use_compact,
-                self._health_wedge, self._health_shift, self._health_topk)
+            with serial_on_cpu(self.device):
+                (self.state, self.rstate, self._lease, self._rlease,
+                 self._health, self._rhealth, pk_l, pk_r, lp_l, lp_r, hp_l,
+                 hp_r) = paxos_tick_health(
+                    self.state, self.rstate, self._lease, self._rlease,
+                    self._health, self._rhealth, inbox, -1,
+                    self._exec_budget if self._use_compact else 0,
+                    self._lag_budget, self._lease_horizon,
+                    self._use_compact, self._health_wedge,
+                    self._health_shift, self._health_topk)
             packed = pk_l if pk_r is None else (pk_l, pk_r)
             lease_pack = lp_l if lp_r is None else (lp_l, lp_r)
             health_pack = hp_l if hp_r is None else (hp_l, hp_r)

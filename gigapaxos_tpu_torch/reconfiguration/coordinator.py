@@ -321,9 +321,20 @@ class PaxosReplicaCoordinator(AbstractReplicaCoordinator):
         unlike the plain path's caller-side restore, a migrated epoch's
         blob must survive WAL replay because the source epoch's copy is
         dropped right after."""
-        raise NotImplementedError(
-            "not ported yet: targeted-row creates (the placement slice, "
-            "with the mesh)")
+        slots = [self._slot[n] for n in nodes if n in self._slot]
+        if not slots:
+            return False
+        pname = self._pax_name(name, epoch)
+        with self.manager.lock:
+            ok = self.manager.create_paxos_instance_at(
+                pname, slots, epoch, row, app_seed=initial_state
+            )
+        if not ok:
+            return False
+        live = self._epoch.get(name)
+        if live is None or epoch > live:
+            self._epoch[name] = epoch
+        return True
 
     def delete_replica_group(self, name: str, epoch: int) -> bool:
         pname = self._pax_name(name, epoch)

@@ -205,11 +205,20 @@ class ReconfiguratorDB(Replicable):
                     "universe": list(rec.universe)}
         if op in ("placement_set", "placement_clear",
                   "placement_set_cell", "placement_clear_cell"):
-            # placement-override table: overrides ride the special
-            # _PLACEMENT record's rc_epochs map
-            raise NotImplementedError(
-                "not ported yet: placement-override commands (the "
-                "placement slice, with the mesh)")
+            # placement-override table (placement/table.py): overrides ride
+            # the special _PLACEMENT record's rc_epochs map, so they are
+            # replicated and checkpointed like every other record.  The
+            # import is deferred: reconfiguration.__init__ imports this
+            # module, and placement.table imports consistent_hashing back.
+            from ..placement.table import (PLACEMENT_RECORD,
+                                           apply_placement_command)
+
+            if name != PLACEMENT_RECORD:
+                return {"ok": False, "error": "placement_record_only"}
+            return apply_placement_command(
+                self.records, cmd,
+                lambda n: ReconfigurationRecord(name=n),
+            )
         if op == "create":
             if rec is not None:
                 return {"ok": False, "error": "exists", "epoch": rec.epoch}

@@ -60,9 +60,6 @@ from .reconfiguration.reconfigurator import Reconfigurator
 
 log = logging.getLogger(__name__)
 
-#: what the server refuses until the serving cells are ported
-CELLS_UNPORTED = "not ported yet: the serving-cell host plane (the cells slice)"
-
 
 class ModeBServer:
     """One OS process of a Mode B deployment (active and/or reconfigurator
@@ -423,10 +420,34 @@ class ModeBServer:
                     n.wal.close()
 
 
-def _run_cells(cfg: GigapaxosTpuConfig, log_dir: Optional[str]) -> None:
-    """``--cells`` bootstrap: one supervised multi-core host plane of
-    crash-isolated Mode A cells.  Not ported yet."""
-    raise NotImplementedError(CELLS_UNPORTED)
+def _run_cells(cfg: GigapaxosTpuConfig, log_dir: Optional[str],
+               device=None) -> None:
+    """``--cells`` bootstrap: one supervised multi-core host plane instead
+    of one ModeBServer process — N crash-isolated Mode A cells (cells/),
+    sized and tuned by the ``cells.*`` properties section, every cell's
+    planes on ``device`` (default CUDA)."""
+    from .cells.supervisor import build_supervisor
+
+    base_dir = log_dir or cfg.log_dir or os.path.join(
+        os.getcwd(), "gptpu-cells")
+    os.makedirs(base_dir, exist_ok=True)
+    sup = build_supervisor(cfg, base_dir, edge=cfg.cells.edge_port > 0,
+                           device=device)
+    sup.start()
+    edge = (f" edge={sup.edge_addr[0]}:{sup.edge_addr[1]}"
+            if sup.edge_addr else "")
+    print(f"gigapaxos_tpu_torch cells host ready: {sup.n_cells} cells{edge}",
+          flush=True)
+
+    stop = threading.Event()
+
+    def _sig(_signum, _frame):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _sig)
+    signal.signal(signal.SIGINT, _sig)
+    stop.wait()
+    sup.stop()
 
 
 def main(argv=None) -> None:
@@ -441,15 +462,16 @@ def main(argv=None) -> None:
     ap.add_argument("--no-fd", action="store_true",
                     help="disable the failure detector (tests only)")
     ap.add_argument("--cells", action="store_true",
-                    help="boot the multi-core serving-cell plane for this "
-                         "host (not ported yet: raises)")
+                    help="boot the multi-core serving-cell plane (cells/) "
+                         "for this host instead of a single-node server; "
+                         "sized by the cells.* properties section")
     ap.add_argument("--device", default=None,
                     help="torch device of every plane (default: cuda)")
     args = ap.parse_args(argv)
 
     cfg = load_properties(args.properties)
     if args.cells or cfg.cells.enabled:
-        _run_cells(cfg, args.log_dir)
+        _run_cells(cfg, args.log_dir, device=args.device)
         return
     if not args.node:
         ap.error("--node is required unless --cells is set")

@@ -58,6 +58,31 @@ class RowAllocator:
         self._row_to_name[row] = name
         return row
 
+    def alloc_at(self, name: str, row: int) -> int:
+        """Allocate a given free row (targeted placement).  The caller
+        journals the row (WAL ``OP_CREATE_AT``), so replay repeats the same
+        targeted pop and the free lists stay in step with the live run for
+        every later LIFO ``alloc``."""
+        if name in self._name_to_row:
+            raise KeyError(f"{name!r} already allocated")
+        pool = self._free if row < self.split else self._free_hi
+        try:
+            pool.remove(row)
+        except ValueError:
+            raise KeyError(f"row {row} is not free") from None
+        self._name_to_row[name] = row
+        self._row_to_name[row] = name
+        return row
+
+    def free_in_range(self, lo: int, hi: int) -> Optional[int]:
+        """Most recently freed free row in ``[lo, hi)`` (LIFO top first), or
+        None; a replay that repeats the search picks the same row."""
+        for pool in (self._free, self._free_hi):
+            for r in reversed(pool):
+                if lo <= r < hi:
+                    return r
+        return None
+
     def row(self, name: str) -> Optional[int]:
         return self._name_to_row.get(name)
 

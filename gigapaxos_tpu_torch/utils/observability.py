@@ -6,7 +6,8 @@ outstanding/unpaused counts dump (``PaxosManager.java:482-494``).
 :class:`StatsReporter` is that loop: registered sources are polled on an
 interval and emitted as one JSON line each through ``logging``
 (machine-parseable, journald/file friendly).  The sources here cover the
-nodes and the transport; the placement plane's sources come with it.
+nodes and the transport.  The per-shard load source reports the placement
+demand plane as disabled: the port's managers refuse ``placement.enabled``.
 """
 
 from __future__ import annotations
@@ -124,3 +125,12 @@ def transport_stats_source(transport) -> Callable[[], dict]:
         return dict(transport.stats)
 
     return snap
+
+
+def shard_load_source(manager) -> Callable[[], dict]:
+    """Per-shard load gauge off the placement demand counters.  The port's
+    managers have none (placement is refused at construction), so it
+    reports ``{"enabled": False}``, as the reference's source does for a
+    manager without them."""
+
+    return lambda: {"enabled": False}

@@ -142,7 +142,9 @@ def tracer(ns: str) -> RequestTracer:
 # owner cell), so the client mints a process-independent trace id and stamps
 # it on the wire frame (``p["trace"]``, behind the client-side flag — see
 # ``client.trace``); every hop that sees the key records into the shared
-# ``x`` namespace of ITS process store.
+# ``x`` namespace of ITS process store.  ``dump_ns`` is the per-process
+# export; CellSupervisor merges the workers' dumps into one timeline served
+# from the scrape endpoint (``/trace/<tid>``).
 #
 # Recording at a hop is gated by the id's *presence*, not by the hop
 # process's GPTPU_REQTRACE — the client flag is the one switch, and the
@@ -171,3 +173,15 @@ def xtracer() -> RequestTracer:
     t = RequestTracer(XNS)
     t.enabled = True
     return t
+
+
+def dump_ns(ns: str = XNS, limit: int = 64) -> dict:
+    """JSON-able export of a namespace's recent timelines:
+    ``{rid: [[ts, stage, detail], ...]}`` — the worker's ``trace`` reply,
+    which the supervisor merges across cells."""
+    st = _store()
+    out = {}
+    for rid in st.keys(ns, limit):
+        out[str(rid)] = [[round(ts, 6), stage, detail]
+                         for ts, stage, detail in st.get(ns, rid)]
+    return out

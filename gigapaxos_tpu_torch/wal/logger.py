@@ -29,9 +29,9 @@ writes ride ``OP_REG`` records and the register-mode bit the 5-field
 ``reg_``, ``lease_`` and ``rlease_`` prefixes (health columns are observation
 only and never journaled).  A device-app manager journals each tick's
 descriptor upload in the ``OP_TICK`` record's ``kv_reg`` field and
-snapshots its KV store and table under the ``dkv_`` prefix.  Targeted
-creates (``OP_CREATE_AT``) come with a later slice of the port and raise
-``NotImplementedError`` naming it.
+snapshots its KV store and table under the ``dkv_`` prefix.  A targeted
+create (``OP_CREATE_AT``) journals its row and the app seed blob, and replay
+repeats the same targeted allocation.
 """
 
 from __future__ import annotations
@@ -404,6 +404,17 @@ class PaxosLogger:
             self._append(
                 records.dumps((OP_CREATE, name, list(members), epoch))
             )
+        self._sync()
+
+    def log_create_at(self, name: str, members: List[int], epoch: int,
+                      row: int, app_seed) -> None:
+        """Targeted create (cell or placement migration).  Journals the
+        destination row, which replay must reuse to keep the free list in
+        step, and the app seed blob: for a migrated group the only durable
+        copy of its history once the source epoch's row is removed."""
+        self._append(records.dumps(
+            (OP_CREATE_AT, name, members, epoch, row, app_seed)
+        ))
         self._sync()
 
     def log_remove(self, name: str) -> None:
@@ -1040,9 +1051,12 @@ def _replay_admin_op(m, rec) -> None:
             else:  # (the chain manager takes no register bit)
                 m.create_paxos_instance(name, members, epoch)
     elif op == OP_CREATE_AT:
-        raise NotImplementedError(
-            "targeted creates (OP_CREATE_AT) come with the control-plane "
-            "slice of the port")
+        _, name, members, epoch, row, app_seed = rec
+        if name not in m.rows:
+            # the targeted create and the app seed: replay lands the
+            # migrated group on the same row with the same state
+            m.create_paxos_instance_at(name, members, epoch, row,
+                                       app_seed=app_seed)
     elif op == OP_REMOVE:
         m.remove_paxos_instance(rec[1])
     elif op == OP_PAUSE:

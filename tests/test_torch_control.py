@@ -222,16 +222,28 @@ def test_coordinator_session_equal(pipelined):
 
 
 def test_coordinator_unported_paths_raise():
-    """Targeted creates still raise; a device-app batch is admitted through
-    propose_bulk_kv, with a malformed descriptor refused alone (-3)."""
+    """Targeted creates, once refused here, land on the asked row as the
+    reference's do (and refuse a taken row); a device-app batch is admitted
+    through propose_bulk_kv, with a malformed descriptor refused alone
+    (-3)."""
     import struct
 
+    got_at = {}
+    for key, (C, M, KV, co) in {
+            "ref": (RefConfig, RefManager, RefKV, ref_coord),
+            "port": (PortConfig, PortManager, PortKV, port_coord)}.items():
+        c = C()
+        c.paxos.max_groups = 8
+        kw = {"device": "cpu"} if key == "port" else {}
+        m = M(c, 3, [KV() for _ in range(3)], **kw)
+        coord = co.PaxosReplicaCoordinator(m, ["A", "B", "C"])
+        got_at[key] = [
+            coord.create_replica_group_at("svc", 0, b"", ["A", "B"], row=3),
+            m.rows.row("svc#0"), coord.current_epoch("svc"),
+            coord.create_replica_group_at("two", 0, b"", ["A"], row=3)]
+    assert got_at["ref"] == got_at["port"] == [True, 3, 0, False]
     cfg = PortConfig()
     cfg.paxos.max_groups = 8
-    mgr = PortManager(cfg, 3, [PortKV() for _ in range(3)], device="cpu")
-    coord = port_coord.PaxosReplicaCoordinator(mgr, ["A", "B", "C"])
-    with pytest.raises(NotImplementedError, match="placement slice"):
-        coord.create_replica_group_at("svc", 0, b"", ["A", "B"], row=3)
     cfg.paxos.compact_outbox = True
     cfg.paxos.device_app = True
     mgr = PortManager(cfg, 3, [None] * 3, device="cpu")

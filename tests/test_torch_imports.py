@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it loads no JAX and nothing of
 the JAX package, and its sources import neither."""
 
+import json
 import os
 import pkgutil
 import re
@@ -28,7 +29,12 @@ def test_import_loads_no_jax_and_no_reference_module():
               "modeb.manager", "modeb.wire", "modeb.common",
               "testing.simnet", "chain.modeb", "chain.modeb_logger",
               "server", "config", "obs.prom", "obs.http", "obs.timeline",
-              "utils.observability"):
+              "utils.observability", "cells", "cells.routing",
+              "cells.worker", "cells.supervisor", "cells.migrator",
+              "placement", "placement.table", "txn", "txn.transactor",
+              "reconfiguration.dns_edge", "reconfiguration.http_edge",
+              "testing", "testing.capacity", "testing.openloop",
+              "testing.certs"):
         assert f"gigapaxos_tpu_torch.{m}" in mods
     assert _loaded_reference_modules(mods) == ""
 
@@ -68,6 +74,54 @@ def test_server_chain_modeb_and_obs_alone_load_no_jax():
          "gigapaxos_tpu_torch.obs.prom", "gigapaxos_tpu_torch.obs.http",
          "gigapaxos_tpu_torch.obs.timeline",
          "gigapaxos_tpu_torch.utils.observability"]) == ""
+
+
+def test_cells_txn_edges_and_harnesses_alone_load_no_jax():
+    """The host plane, the transactor, the edges and the capacity and
+    open-loop harnesses, imported on their own."""
+    assert _loaded_reference_modules(
+        ["gigapaxos_tpu_torch.cells", "gigapaxos_tpu_torch.cells.worker",
+         "gigapaxos_tpu_torch.placement", "gigapaxos_tpu_torch.txn",
+         "gigapaxos_tpu_torch.reconfiguration.dns_edge",
+         "gigapaxos_tpu_torch.reconfiguration.http_edge",
+         "gigapaxos_tpu_torch.testing.capacity",
+         "gigapaxos_tpu_torch.testing.openloop"]) == ""
+
+
+def test_cell_worker_process_loads_no_jax(tmp_path):
+    """A cell worker, spawned as the supervisor spawns it (its module run
+    as ``__main__`` with a spec), boots its cluster on the CPU, answers
+    ``stats``, exits on ``exit`` — and has loaded no jax and nothing of
+    the JAX package."""
+    spec = json.dumps({
+        "cell": 0, "n_cells": 1,
+        "actives": {"c0.AR0": ["127.0.0.1", 0]},
+        "reconfigurators": {"c0.RC0": ["127.0.0.1", 0]},
+        "wal_dir": str(tmp_path / "ar"), "rc_wal_dir": str(tmp_path / "rc"),
+        "paxos": {"max_groups": 16}, "device": "cpu"})
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['worker', sys.argv[1]]\n"
+        "try:\n"
+        "    runpy.run_module('gigapaxos_tpu_torch.cells.worker',\n"
+        "                     run_name='__main__')\n"
+        "finally:\n"
+        "    bad = sorted(m for m in sys.modules\n"
+        "                 if m == 'jax' or m.startswith('jax.')\n"
+        "                 or m == 'gigapaxos_tpu'\n"
+        "                 or m.startswith('gigapaxos_tpu.'))\n"
+        "    print('loaded ' + ','.join(bad), flush=True)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code, spec], cwd=ROOT,
+                         env=env, input="stats\nexit\n",
+                         capture_output=True, text=True, timeout=300)
+    lines = out.stdout.splitlines()
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert lines[0] == "ready"
+    assert json.loads(lines[1][len("stats "):])["launches"] == {
+        "gather_planes": 0, "match_planes": 0}
+    assert lines[-1] == "loaded "
 
 
 IMPORT_RE = re.compile(

@@ -350,19 +350,23 @@ def test_native_backend_recovery_equals_python(tmp_path):
 
 
 def test_unported_records_raise_naming_their_slice(tmp_path):
-    """Targeted-create records are refused, never skipped."""
-    cases = [
-        ((tlog.OP_CREATE_AT, "x", [0, 1, 2], 0, 3, b""), "control-plane"),
-    ]
-    for i, (rec, word) in enumerate(cases):
-        d = tmp_path / f"c{i}"
-        d.mkdir()
-        j = tjournal.PyJournal(str(d / "journal.00000000.log"))
-        j.append(trec.dumps(rec))
-        j.close()
-        for mode in ("reference", "batched"):
-            with pytest.raises(NotImplementedError, match=word):
-                recover(PORT, _cfg(PORT), d, mode)
+    """A journal of a targeted create (``OP_CREATE_AT``, once refused here)
+    replays in both arms as the reference replays it: the group lands on
+    the journaled row with the journaled app seed."""
+    seed = trep.KVApp()
+    seed.execute("x", b"PUT k seeded", 1)
+    rec = (tlog.OP_CREATE_AT, "x", [0, 1, 2], 4, 3, seed.checkpoint("x"))
+    d = tmp_path / "c0"
+    d.mkdir()
+    j = tjournal.PyJournal(str(d / "journal.00000000.log"))
+    j.append(trec.dumps(rec))
+    j.close()
+    for mode in ("reference", "batched"):
+        mj = recover(REF, _cfg(REF), d, mode)
+        mt = recover(PORT, _cfg(PORT), d, mode)
+        assert_identical(mj, mt)
+        assert mt.rows.row("x") == 3
+        assert all(a.db == {"x": {"k": "seeded"}} for a in mt.apps)
 
 
 @pytest.mark.parametrize("mode", ["reference", "batched"])

@@ -14,7 +14,10 @@ scenario recording its results for the comparison; every wait is a loop
 with its own deadline.
 """
 
+import os
 import socket
+import subprocess
+import sys
 import threading
 import time
 
@@ -33,6 +36,7 @@ from gigapaxos_tpu_torch.reconfiguration import packets as tpkt
 PKGS = {"ref": (jconfig, jserver, jclient, jpkt, {}),
         "port": (tconfig, tserver, tclient, tpkt, {"device": "cpu"})}
 ACTIVES = ["AR0", "AR1", "AR2"]
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RCS = ["RC0", "RC1", "RC2"]
 
 
@@ -167,6 +171,12 @@ def _kv(d):
     return json.dumps(d, sort_keys=True).encode()
 
 
+def outcome(resp):
+    """A delete's or a reconfiguration's whole verdict, ``ok`` and
+    ``error`` (the replying RC and the request id vary from run to run)."""
+    return resp.get("ok"), resp.get("error")
+
+
 def sc_create_and_request(d):
     r = [d.client.create("svc0", timeout=60)["ok"]]
     members = d.actives("svc0")
@@ -192,7 +202,8 @@ def sc_migrate(d):
     r = [d.client.create("mig", timeout=60)["ok"],
          d.request("mig", b"PUT city amherst")]
     for new in (ACTIVES[:2], ACTIVES):
-        r.append(d.client.reconfigure("mig", list(new), timeout=60)["ok"])
+        r.append(outcome(d.client.reconfigure("mig", list(new),
+                                              timeout=60)))
         until(lambda: d.actives("mig") == sorted(new), 120,
               f"mig on {new}")
         r.append(d.request("mig", b"GET city", timeout=60))
@@ -204,7 +215,7 @@ def sc_migrate(d):
 
 def sc_delete_and_recreate(d):
     r = [d.client.create("gone", timeout=60)["ok"],
-         d.request("gone", b"PUT x 1"), d.client.delete("gone")["ok"]]
+         d.request("gone", b"PUT x 1"), outcome(d.client.delete("gone"))]
     with pytest.raises(Exception):
         d.client.request_actives("gone", force=True)
     r += [d.client.create("gone", timeout=60)["ok"],
@@ -248,7 +259,7 @@ def sc_chain(d):
     r += [d.request("csvc", b"GET k1")]
     r.append(d.checkpoints("csvc", members,
                            _kv({f"k{i}": f"c{i}" for i in range(3)})))
-    r.append(d.client.delete("csvc")["ok"])
+    r.append(outcome(d.client.delete("csvc")))
     return r
 
 
@@ -301,23 +312,47 @@ def test_request_from_every_member(results):
 
 def test_delete_and_recreate(results):
     r = same(results, "sc_delete_and_recreate")
-    assert r == [True, b"OK", True, True, b"NF"]
+    assert r == [True, b"OK", (True, None), True, b"NF"]
 
 
 def test_chain_coordinator_deployment(results):
     r = same(results, "sc_chain")
     assert r[0] is True and r[2:6] == [b"OK", b"OK", b"OK", b"c1"]
-    assert r[-1] is True
+    assert r[-1] == (True, None)
+
+
+def _boot_cells(mod, props, log_dir, extra):
+    """``python -m <mod> --cells`` on ``props``: -> its ready line, the
+    cell directories it made and its exit code after SIGTERM."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", mod, "--properties", str(props), "--log-dir",
+         str(log_dir)] + extra, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True, env=env, cwd=ROOT)
+    try:
+        line = proc.stdout.readline().strip()
+        dirs = sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) else []
+    finally:
+        proc.terminate()
+        rc = proc.wait(timeout=120)
+    return line, dirs, rc
 
 
 def test_cells_are_refused(tmp_path):
+    """Once refused, now the twin of the reference's ``--cells``
+    bootstrap: the same properties boot a two-cell host plane in each
+    package, which prints its ready line, makes a directory a cell and
+    stops every worker on SIGTERM."""
     p = tmp_path / "gp.properties"
-    p.write_text("active.AR0=127.0.0.1:0\n")
-    with pytest.raises(NotImplementedError, match="the cells slice"):
-        tserver.main(["--properties", str(p), "--cells"])
-    p.write_text("active.AR0=127.0.0.1:0\ncells.enabled=true\n")
-    with pytest.raises(NotImplementedError, match="the cells slice"):
-        tserver.main(["--properties", str(p), "--node", "AR0"])
+    p.write_text("active.AR0=127.0.0.1:0\nreconfigurator.RC0=127.0.0.1:0\n"
+                 "cells.enabled=true\ncells.n_cells=2\n"
+                 "cells.pin_cores=false\npaxos.max_groups=16\n")
+    ref = _boot_cells("gigapaxos_tpu.server", p, tmp_path / "ref", [])
+    port = _boot_cells("gigapaxos_tpu_torch.server", p, tmp_path / "port",
+                       ["--device", "cpu"])
+    assert ref[0] == "gigapaxos_tpu cells host ready: 2 cells"
+    assert port[0] == "gigapaxos_tpu_torch cells host ready: 2 cells"
+    assert ref[1:] == port[1:] == (["c0", "c1"], 0)
 
 
 def test_server_defaults_to_cuda():
@@ -328,3 +363,50 @@ def test_server_defaults_to_cuda():
         tserver.ModeBServer("AR0", cfg)
     with pytest.raises(ValueError, match="neither topology section"):
         tserver.ModeBServer("XX", cfg, device="cpu")
+
+
+def measure_node_ticks(pkg):
+    """Seconds of one create, PUT and delete, and the duration of every
+    node tick meanwhile, in ``pkg``'s deployment of six servers: ->
+    (seconds, tick durations).  The CPU-path table of ``PERF.md``
+    (``python -m tests.test_torch_server``); each call waits up to 60 s
+    here, since what is measured is the time, not the twin's verdict."""
+    node_cls = {"ref": jserver.ModeBNode, "port": tserver.ModeBNode}[pkg]
+    ticks, on = [], threading.Event()
+    orig = node_cls.tick
+
+    def tick(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *a, **k)
+        finally:
+            if on.is_set():
+                ticks.append(time.perf_counter() - t0)
+
+    node_cls.tick = tick
+    d = Deployment(pkg)
+    try:
+        on.set()
+        t = [time.perf_counter()]
+        assert d.client.create("gone", timeout=60)["ok"]
+        t.append(time.perf_counter())
+        assert d.request("gone", b"PUT x 1", timeout=60) == b"OK"
+        t.append(time.perf_counter())
+        assert d.client.delete("gone", timeout=60)["ok"]
+        t.append(time.perf_counter())
+        on.clear()
+    finally:
+        node_cls.tick = orig
+        d.close()
+    return [b - a for a, b in zip(t, t[1:])], ticks
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(1)
+    for name in PKGS:
+        secs, ticks = measure_node_ticks(name)
+        mean = 1e3 * sum(ticks) / len(ticks)
+        print(f"{name}: create / PUT / delete "
+              + " / ".join(f"{x:.2f}" for x in secs)
+              + f" s; {len(ticks)} node ticks, mean {mean:.1f} ms, max "
+              f"{1e3 * max(ticks):.1f} ms", flush=True)

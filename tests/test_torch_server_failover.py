@@ -30,7 +30,8 @@ def results():
 
 def test_migrate_preserves_state_across_processes(results):
     r = same(results, "sc_migrate")
-    assert r[:7] == [True, b"OK", True, b"amherst", True, b"amherst", b"OK"]
+    assert r[:7] == [True, b"OK", (True, None), b"amherst", (True, None),
+                     b"amherst", b"OK"]
     assert set(r[7]) == set(ACTIVES)
 
 
