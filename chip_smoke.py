@@ -36,8 +36,8 @@ the kernels are built for sm_90a).  It
 6. cluster phase: the port's ``InProcessCluster`` with 5 actives and 3
    reconfigurators on loopback ports, 2^20 rows on each plane (``KVApp``,
    3 replicas per name), driven through ``ReconfigurableAppClient``:
-   128 names created in batches, one PUT each through batched sends,
-   every name read back (32 of them one at a time for latency), 4 names
+   64 names created in batches, one PUT each through batched sends,
+   every name read back (16 of them one at a time for latency), 4 names
    reconfigured onto a rotated 3-of-5 set, 4 deleted, the survivors read
    back again and their app states held equal at every member; 32 names
    also go through the DNS edge (an ``A`` query each, answered with the
@@ -74,7 +74,7 @@ the kernels are built for sm_90a).  It
    names).  Each chain tick must launch 1 gather and no match;
 10. modeb phase: ``modeb-1M`` runs benchmarks/modeb_scale.py's shape —
    three ``ModeBNode``s on loopback ``Messenger``s, each with its own
-   2^20-group state on the card (W=4, P=4, anti-entropy every 64 ticks,
+   2^20-group state on the card (W=4, P=4, anti-entropy every 32 ticks,
    cut from the benchmark's 256 for the run's time):
    bulk create, the election of every group, a warm and a steady wave
    (frame bytes per node tick), a hot wave on 2^14 groups and a mass
@@ -134,7 +134,24 @@ the kernels are built for sm_90a).  It
    of a 2^17-row ``PaxosManager``: every committed one shows on both
    names, every aborted one on neither, no lock is left.
    ``capacity-128k`` walks ``CapacityProbe``'s ladder over 1,024 groups of
-   a 2^17-row loopback cluster for at most 30 s.
+   a 2^17-row loopback cluster for at most 30 s;
+13. placement and mesh phase: ``placement-128k`` runs manager-128k's
+   deployment with ``placement.enabled`` (``sample_every_ticks=1``): the
+   demand EWMA folds inside the scripted compact tick, every tick
+   launches 5 gathers and 1 match, the sampled demand must equal a host
+   fold of the same ticks' intake bit for bit, and the demand tick's
+   device ms is timed against the plain compact tick's on the same state
+   and load.  ``mesh-1M`` runs tick-1M's shape (R=3, W=8, P=4, G=2^20,
+   bench.py's load) through the sharded tick on ``make_mesh([cuda] *
+   8)``: eight group shards of 2^17, all on the one card, 8 x (5 + 1)
+   launches a tick, every flat buffer and the final state equal to an
+   unsharded run of the same inputs on the card; ``mesh-128k-r4`` the
+   same at R=4 with 2 replica x 4 group shards (``tests/test_sharding.py``'s
+   layout) at G=2^17.  ``mesh-placement-128k`` runs a ``KVApp`` manager on
+   that 8-shard mesh with placement on: 32 names born in shard 0, skewed
+   traffic, one ``ShardRebalancer.propose`` and one
+   ``GroupMigrator.execute_plan``; shard 0's share of the demand must fall
+   and every acknowledged write read back.
 
 The kernels phase also holds both kernels against their plain versions at
 the narrow widths sparse replay gives them (A=8 groups, W=4), at the
@@ -414,14 +431,18 @@ def path_launches(pg, path: str, n_ticks: int, planes: int = 1) -> dict:
 #: manager and its dense replay), and the cluster's two 2^20-row planes at
 #: the default W=4, P=4 (5 actives, 3 reconfigurators); the 2^17-row W=4
 #: P=4 shape is also every live and replayed node tick of modeb-wal-128k
-#: and of the servers' Paxos planes (server-128k's actives, every RC plane)
+#: and of the servers' Paxos planes (server-128k's actives, every RC plane);
+#: placement-128k ticks manager-128k's shape, a mesh-1M shard the reads
+#: log plane's [3, 8, 2^17] at P=4, and the R=4 mesh's shards tick their
+#: replica-gathered [4, 8, 2^15] blocks
 PATH_SHAPES = ((3, 4, 8, 4, "replay A=8 W=4: "),
-               (3, 8, 1 << 17, 2, "replay/manager 128k: "),
+               (3, 8, 1 << 17, 2, "replay/manager/placement 128k: "),
                (5, 4, 1 << 20, 4, "cluster AR R=5 W=4: "),
                (3, 4, 1 << 20, 4, "cluster RC R=3 W=4: "),
                (3, 8, 1 << 17, 1, "mixed log W=8 P=1: "),
                (3, 1, 917_504, 1, "mixed reg W=1 P=1: "),
-               (3, 8, 1 << 17, 4, "reads log 128k P=4: "),
+               (3, 8, 1 << 17, 4, "reads log 128k P=4, mesh-1M shard: "),
+               (4, 8, 1 << 15, 4, "mesh R=4 rs=2 shard tick block: "),
                (3, 1, 1 << 17, 4, "reads reg W=1 128k P=4: "),
                (3, 4, 1 << 17, 4, "chain cluster RC, modeb-wal, its "
                 "replay and the servers' planes R=3 W=4 128k: "),
@@ -1086,7 +1107,9 @@ def wal_phase(torch, dev, R, W, manager_ms):
     """Both legs on the card, in a temporary directory removed after."""
     work = tempfile.mkdtemp(prefix="chip_smoke_wal_")
     try:
-        dense = wal_dense_leg(torch, dev, R, W, 1 << 17, ticks=30,
+        # 20 ticks, cut from 30 for the run's time: a checkpoint at tick
+        # 11, then 9 replayed ticks in each replay arm
+        dense = wal_dense_leg(torch, dev, R, W, 1 << 17, ticks=20,
                               work=os.path.join(work, "dense"),
                               manager_ms=manager_ms)
         sparse = wal_sparse_leg(torch, dev, R, 4, 1 << 20, ticks=16,
@@ -3460,7 +3483,7 @@ def modeb_wal_leg(torch, pg, dev, work, G=1 << 17, hot=1 << 14,
 
 
 def modeb_phase(torch, pg, dev, G_1m=1 << 20, hot=1 << 14, laggard=1 << 16,
-                G_fast=1 << 17, busy_fast=4096, G_dev=1 << 17,
+                ae_1m=32, G_fast=1 << 17, busy_fast=4096, G_dev=1 << 17,
                 busy_dev=4096, dev_ticks=16, cpu_ticks=3, G_wal=1 << 17,
                 hot_wal=1 << 14, gap_wal=1 << 12, chaos_groups=1 << 10):
     """The four Mode B legs; each Mode B path's launches in ``launches``
@@ -3468,8 +3491,11 @@ def modeb_phase(torch, pg, dev, G_1m=1 << 20, hot=1 << 14, laggard=1 << 16,
     leg; ``modeb_fast``: the fast leg's fast half; ``modeb_wal`` and
     ``modeb_replay``: the durable leg's live and replayed node ticks)."""
     t0 = time.perf_counter()
+    # anti-entropy every 32 for the run's time (the births wait one
+    # cycle: 68 rounds, 55.3-85.8 s, at 64 on an H100)
     out = {"modeb-1M": modeb_1m_leg(torch, pg, dev, G_1m, hot=hot,
-                                    laggard=laggard, cpu_ticks=cpu_ticks)}
+                                    laggard=laggard, cpu_ticks=cpu_ticks,
+                                    ae=ae_1m)}
     out["modeb-fast"] = modeb_fast_leg(torch, pg, dev, G_fast, busy_fast)
     out["modeb-device-128k"] = modeb_device_leg(torch, pg, dev, G_dev,
                                                 busy_dev, dev_ticks)
@@ -4629,6 +4655,302 @@ def host_plane_phase(torch, pg, dev, card, cells_G=1 << 18, n_cells=4,
 
 # ------------------------------------------------------ profile (opt-in)
 
+# ------------------------------------------------- placement and mesh phase
+
+def _leg_ms(torch, dev, fn, reps):
+    """Median ms of one call of ``fn``: CUDA events on the card, the host
+    clock on the CPU (the legs' CPU rehearsal)."""
+    if dev.type == "cuda":
+        return time_ms(torch, fn, reps=reps)
+    fn()
+    xs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        xs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(xs)
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _host_demand_fold(demand, per_row, decay):
+    """The demand fold on the host, rounded as the device rounds it (one
+    float64 multiply-add a tick, then float32)."""
+    dec = np.float64(np.float32(decay))
+    return (demand.astype(np.float64) * dec
+            + per_row.astype(np.float64)).astype(np.float32)
+
+
+def placement_leg(torch, pg, dev, R=3, W=8, G=1 << 17, ticks=20, reps=10):
+    """placement-128k: manager-128k's deployment with the placement plane
+    on (``sample_every_ticks=1``): the demand EWMA folds inside the
+    scripted compact tick.  Every tick launches 5 gathers and 1 match;
+    the sampled demand equals a host fold of the same ticks' intake; the
+    demand tick's device ms against the plain compact tick's on the same
+    state and load."""
+    import struct
+
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.dense_apps import DenseCounterApp
+    from gigapaxos_tpu_torch.ops import tick as pt
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+
+    cfg = stack_cfg(GigapaxosTpuConfig(), R, W, G)
+    cfg.placement.enabled = True
+    cfg.placement.sample_every_ticks = 1
+    apps = [DenseCounterApp(G) for _ in range(R)]
+    m = PaxosManager(cfg, R, apps, spill_ns="smoke-placement", device=dev)
+    check(m._demand_dev is not None, "placement-128k: no device fold")
+    for a in apps:
+        a.row_of = m.rows.row
+    check(m.create_paxos_instances([f"g{i}" for i in range(G)],
+                                   list(range(R))) == G, "create failed")
+    rows = np.array([m.rows.row(f"g{i}") for i in range(G)], np.int64)
+    payload = struct.pack("<q", 1)
+    # the host fold of every completed tick's intake (taken_bits popcount)
+    host = np.zeros(G, np.float32)
+    real = m._process_compact
+
+    def spy(co, *a, **k):
+        nonlocal host
+        bits = co.taken_bits.astype(np.int64)
+        per_row = np.zeros(bits.shape[1], np.int64)
+        for _ in range(m.P):
+            per_row += (bits & 1).sum(axis=0)
+            bits >>= 1
+        host = _host_demand_fold(host, per_row[:G], m._placement.decay)
+        return real(co, *a, **k)
+
+    m._process_compact = spy
+    skew = np.arange(G) % 4 == 0  # a quarter of the groups runs hot
+    pg.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(ticks):
+        sel = rows if t % 2 == 0 else rows[skew]
+        m.propose_bulk(sel, payload)
+        m.tick()
+    m.drain_pipeline()
+    elapsed = time.perf_counter() - t0
+    n_ticks = m.tick_num
+    # a CPU rehearsal runs the plain versions inside the scripted program
+    launches = (path_launches(pg, "placement-128k", n_ticks)
+                if dev.type == "cuda" else None)
+    dev_demand = m._placement.sample_device()
+    check(np.array_equal(dev_demand.view(np.uint32), host.view(np.uint32)),
+          "placement-128k: device demand != host fold of the same intake")
+    check(float(dev_demand.sum()) > 0, "placement-128k: no demand")
+    # the demand tick against the plain compact tick: same state, same load
+    inbox = load_inbox(torch, pt, R, cfg.paxos.proposals_per_tick, G,
+                       1 << 24, dev)
+    demand = torch.zeros(G, dtype=torch.float32, device=dev)
+    E, Lb = m._exec_budget, m._lag_budget
+    state = m.state
+    ms_plain = _leg_ms(torch, dev, lambda: pt.paxos_tick_compact(
+        state, inbox, -1, E, Lb), reps)
+    ms_demand = _leg_ms(torch, dev, lambda: pt.paxos_tick_compact_demand(
+        state, inbox, demand, -1, E, Lb, m._placement.decay), reps)
+    ms_plain2 = _leg_ms(torch, dev, lambda: pt.paxos_tick_compact(
+        state, inbox, -1, E, Lb), reps)
+    loads = m._placement.shard_loads()
+    return {
+        "R": R, "W": W, "G": G, "P": cfg.paxos.proposals_per_tick,
+        "ticks_total": n_ticks, "ms_per_tick": elapsed / n_ticks * 1e3,
+        "decisions": int(m.stats["decisions"]),
+        "demand_tick_ms": ms_demand,
+        "plain_compact_tick_ms": [ms_plain, ms_plain2],
+        "demand_sum": float(dev_demand.sum()),
+        "demand_equals_host_fold": True,
+        "shard_loads": [float(x) for x in loads],
+        "launches": launches,
+    }
+
+
+def _mesh_run(torch, pg, pt, st, tick_fn, R, W, P, G, ticks, dev,
+              exec_budget, lag_budget):
+    """``ticks`` loaded ticks and W drain ticks of ``tick_fn`` from a fresh
+    state; returns (final state, flat buffers on the card, ms a tick)."""
+    s = st.create_groups(st.init_state(R, G, W, device=dev), np.arange(G),
+                         np.ones((G, R), bool))
+    flats = []
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for t in range(ticks + W):
+        inbox = load_inbox(torch, pt, R, P, G, 1 + t * G, dev,
+                           empty=t >= ticks)
+        s, flat = tick_fn(s, inbox)
+        flats.append(flat)
+    _sync(torch, dev)
+    return s, flats, (time.perf_counter() - t0) / (ticks + W) * 1e3
+
+
+def mesh_case(torch, pg, dev, R, W, P, G, rs, ticks):
+    """The sharded tick on ``make_mesh([dev] * 8, rs)``: its launches (8
+    shards x (5 + 1) a tick), its state and every flat buffer against an
+    unsharded run of the same inputs on the card."""
+    from gigapaxos_tpu_torch.ops import tick as pt
+    from gigapaxos_tpu_torch.parallel import mesh as pm
+    from gigapaxos_tpu_torch.parallel import shard_tick as stk
+    from gigapaxos_tpu_torch.paxos import state as st
+
+    E, Lb = R * G + 4096, 1024
+    mesh = pm.make_mesh([dev] * 8, replica_shards=rs)
+    stk.validate_mesh_for(mesh, R, G)
+    shard = stk.make_shardmap_tick_compact(mesh, -1, E, Lb)
+    pg.reset_launches()
+    s_sh, f_sh, ms_sh = _mesh_run(torch, pg, pt, st, shard, R, W, P, G,
+                                  ticks, dev, E, Lb)
+    n = ticks + W
+    gs = mesh.groups_shards
+    launches = None
+    if dev.type == "cuda":
+        launches = launches_now(
+            pg, f"mesh R={R} rs={rs}, {n} ticks of {8} shards",
+            {"gather_planes": 5 * 8 * n, "match_planes": 8 * n})
+    s_un, f_un, ms_un = _mesh_run(
+        torch, pg, pt, st,
+        lambda s, ib: pt.paxos_tick_compact(s, ib, -1, E, Lb),
+        R, W, P, G, ticks, dev, E, Lb)
+    for t, (a, b) in enumerate(zip(f_sh, f_un)):
+        check(torch.equal(a, b), f"mesh R={R} rs={rs}: tick {t}'s flat "
+              "buffer differs from the unsharded run")
+    for name, a, b in zip(st.PaxosState._fields, s_sh, s_un):
+        check(torch.equal(a, b), f"mesh R={R} rs={rs}: state.{name} "
+              "differs from the unsharded run")
+    co = pt.unpack_compact(f_sh[ticks - 1].cpu().numpy(), R, G, E, Lb)
+    check(co.n_exec > 0, f"mesh R={R} rs={rs}: nothing executed")
+    return {
+        "R": R, "W": W, "P": P, "G": G, "replica_shards": rs,
+        "groups_shards": gs, "shard_block": [R // rs, W, G // gs],
+        "tick_block": [R, W, G // gs],
+        "devices": f"{len(mesh.devices)} x {dev} (every shard on the one "
+                   "card)",
+        "ticks_total": n, "ms_per_tick": ms_sh,
+        "unsharded_ms_per_tick": ms_un,
+        "equal_to_unsharded": True, "launches": launches,
+        "launches_per_tick": (None if launches is None else
+                              {k: v / n for k, v in launches.items()}),
+    }
+
+
+def mesh_placement_case(torch, pg, dev, R=3, W=4, G=1 << 17, n_names=32,
+                        rounds=16, moves=8):
+    """Placement on the mesh: a manager on ``make_mesh([dev] * 8)`` with
+    ``KVApp``s; every name is born in shard 0's rows, traffic skews onto
+    it, then one ``ShardRebalancer.propose`` and one
+    ``GroupMigrator.execute_plan`` through the epoch machinery.  Every
+    acknowledged write reads back afterwards."""
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.parallel import mesh as pm
+    from gigapaxos_tpu_torch.paxos.manager import PaxosManager
+    from gigapaxos_tpu_torch.placement import (GroupMigrator, MigrationStats,
+                                              ShardRebalancer)
+    from gigapaxos_tpu_torch.reconfiguration.coordinator import (
+        PaxosReplicaCoordinator)
+
+    cfg = GigapaxosTpuConfig()
+    cfg.paxos.max_groups = G
+    cfg.paxos.window = W
+    cfg.paxos.compact_outbox = True
+    cfg.paxos.pipeline_ticks = True
+    cfg.paxos.deactivation_ticks = 0
+    cfg.placement.enabled = True
+    cfg.placement.sample_every_ticks = 1
+    apps = [KVApp() for _ in range(R)]
+    m = PaxosManager(cfg, R, apps, device=dev,
+                     mesh=pm.make_mesh([dev] * 8))
+    nodes = [f"AR{i}" for i in range(R)]
+    coord = PaxosReplicaCoordinator(m, nodes)
+    for i in range(n_names):
+        check(coord.create_replica_group(f"svc{i}", 0, b"", nodes),
+              "mesh placement: create failed")
+    acked = {}
+
+    def traffic(tag):
+        for i in range(rounds):
+            for g in range(n_names):
+                name = f"svc{g}"
+                key = f"{tag}{i}"
+                coord.coordinate_request(
+                    name, coord.current_epoch(name),
+                    f"PUT {key} {g}".encode(),
+                    lambda r, x, k=(name, key, str(g)): acked.__setitem__(
+                        k, x))
+            m.tick()
+        m.drain_pipeline()
+
+    traffic("a")
+    demand = m.demand_snapshot()
+    loads0 = m._placement.shard_loads()
+    reb = ShardRebalancer(m.G, 8, skew_threshold=2.0, min_interval_ticks=0,
+                          max_moves_per_plan=moves)
+    plan = reb.propose(m.tick_num, demand,
+                       free_rows_in_shard=m.free_rows_in_shard,
+                       blob_bytes=m.blob_bytes_of_row)
+    check(bool(plan), "mesh placement: the rebalancer planned nothing")
+    stats = MigrationStats()
+    mig = GroupMigrator(coord, counters=m._placement, stats=stats)
+    t0 = time.perf_counter()
+    moved = mig.execute_plan(plan, pump=m.tick)
+    move_s = time.perf_counter() - t0
+    check(moved >= 1, "mesh placement: no group moved")
+    traffic("b")
+    m.demand_snapshot()
+    loads1 = m._placement.shard_loads()
+    skew0 = ShardRebalancer.skew(loads0, 1e-3)
+    skew1 = ShardRebalancer.skew(loads1, 1e-3)
+    # every name was born in shard 0: its share of the demand must fall
+    share0 = float(loads0[0] / loads0.sum())
+    share1 = float(loads1[0] / loads1.sum())
+    check(share1 < share0, f"mesh placement: shard 0 holds {share0:.3f} "
+          f"of the demand before the moves and {share1:.3f} after")
+    check(all(x == b"OK" for x in acked.values()),
+          "mesh placement: a write was not acknowledged OK")
+    _gs, per = m.shard_geometry()
+    homes = sorted({m.rows.row(f"svc{g}#{coord.current_epoch(f'svc{g}')}")
+                    // per for g in range(n_names)})
+    for (name, key, val) in acked:
+        db = json.loads(apps[0].checkpoint(
+            f"{name}#{coord.current_epoch(name)}") or b"{}")
+        check(db.get(key) == val, f"mesh placement: {name} lost {key}")
+    return {
+        "R": R, "W": W, "G": G, "groups_shards": 8, "names": n_names,
+        "skew_before": float(skew0), "skew_after": float(skew1),
+        "shard0_share_before": share0, "shard0_share_after": share1,
+        "shard_loads_before": [float(x) for x in loads0],
+        "shard_loads_after": [float(x) for x in loads1],
+        "planned_moves": len(plan.moves), "groups_moved": int(moved),
+        "bytes_transferred": stats.bytes_transferred,
+        "execute_plan_s": move_s, "shards_holding_names": homes,
+        "acked_writes": len(acked),
+    }
+
+
+def placement_mesh_phase(torch, pg, dev, card, G_128k=1 << 17,
+                         G_1m=1 << 20, mesh_ticks=10, names=32):
+    """placement-128k and mesh-1M (see the module docstring)."""
+    t0 = time.perf_counter()
+    plc = placement_leg(torch, pg, dev, G=G_128k)
+    plc["card"] = card
+    print("placement-128k " + json.dumps(plc), flush=True)
+    mesh = mesh_case(torch, pg, dev, 3, 8, 4, G_1m, rs=1, ticks=mesh_ticks)
+    mesh["card"] = card
+    print("mesh-1M " + json.dumps(mesh), flush=True)
+    mesh4 = mesh_case(torch, pg, dev, 4, 8, 4, G_128k, rs=2,
+                      ticks=max(2, mesh_ticks // 2))
+    mesh4["card"] = card
+    print("mesh-128k-r4 " + json.dumps(mesh4), flush=True)
+    mpl = mesh_placement_case(torch, pg, dev, G=G_128k, n_names=names)
+    mpl["card"] = card
+    print("mesh-placement-128k " + json.dumps(mpl), flush=True)
+    return {"placement-128k": plc, "mesh-1M": mesh, "mesh-128k-r4": mesh4,
+            "mesh-placement-128k": mpl,
+            "phase_s": time.perf_counter() - t0}
+
+
 def profile_tick(torch, dev, R, W, P, G, exec_budget, lag_budget=1024,
                  warm=3, ticks=3):
     """Where a loaded tick's time goes: device time of the tick program
@@ -4772,9 +5094,10 @@ def main(argv=None) -> int:
         # with the modeb phase took up to 1,024.7 s on an H100 (700 W); at
         # 512 and 64 with the chain Mode B and server phase, 973.5 s in one
         # run and 1,396 s in another; at 256 names, 8 reconfigurations and
-        # 8 deletes with the cells, transaction and capacity legs, 1,234 s
-        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=128,
-                            serial=32, n_reconf=4, n_delete=4, edges=32)
+        # 8 deletes with the cells, transaction and capacity legs, 1,234 s;
+        # at 128 and 32 with the placement and mesh phase, 1,045.4 s
+        clu = cluster_phase(torch, pg, dev, 1 << 20, n_names=64,
+                            serial=16, n_reconf=4, n_delete=4, edges=32)
         clu["card"] = card
         launches["cluster"] = clu["launches"]
         print("cluster " + json.dumps(clu), flush=True)
@@ -4822,6 +5145,10 @@ def main(argv=None) -> int:
         print(f"cells, txn and capacity phase {hpp['phase_s']:.1f} s",
               flush=True)
         stamp("cells, txn and capacity")
+        pmp = placement_mesh_phase(torch, pg, dev, card)
+        print(f"placement and mesh phase {pmp['phase_s']:.1f} s",
+              flush=True)
+        stamp("placement and mesh")
 
         def total(*runs):
             return {k: sum(r[k] for r in runs) for k in launches["tick"]}
@@ -4861,6 +5188,11 @@ def main(argv=None) -> int:
         launches["cells"] = hpp["cells-1M"]["launches"]
         launches["txn"] = hpp["txn-128k"]["launches"]
         launches["capacity"] = hpp["capacity-128k"]["launches"]
+        # the demand tick's manager run (5 + 1 a tick); the sharded ticks
+        # of mesh-1M and of the R=4 mesh (8 shards x (5 + 1) a tick)
+        launches["placement"] = pmp["placement-128k"]["launches"]
+        launches["mesh"] = pmp["mesh-1M"]["launches"]
+        launches["mesh_r4"] = pmp["mesh-128k-r4"]["launches"]
         print("launches " + json.dumps(launches), flush=True)
         if args.profile:
             prof = profile_tick(torch, dev, R, W, P, G, R * G + 4096)

@@ -3,9 +3,7 @@ control plane and the per-process server read, and the properties loader.
 
 Copies of the reference's dataclasses, with the same fields, the same
 defaults and the same checks, so one properties file configures either
-package.  Options whose planes have not been ported yet (the mesh and
-placement) keep their fields: the manager raises ``NotImplementedError``
-when one is set, instead of ignoring it.
+package.
 
 :func:`load_properties` reads a ``gigapaxos.properties``-style file (the
 ``active.*`` / ``reconfigurator.*`` topology lines, ``universe=``, flat

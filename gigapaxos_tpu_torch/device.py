@@ -6,12 +6,14 @@ the CPU.  There is no silent fallback: asking for CUDA on a host without a
 usable card raises.
 
 :func:`serial_on_cpu` is the lock a tick program holds while it runs.  On
-the CPU a program is hundreds of small eager ops, each of which drops and
-retakes the interpreter lock; several planes ticking on threads of one
-process (a server's active and RC planes, a cluster, a test's six servers)
-then hand that lock back and forth at every op and each tick takes many
-times its time alone.  One program at a time runs them back to back
-instead.  On CUDA a program only queues launches, and takes no lock.
+the CPU an eager program (the Mode B and chain ticks) is hundreds of small
+ops, each of which drops and retakes the interpreter lock; several planes
+ticking on threads of one process (a server's active and RC planes, a
+cluster, a test's six servers) then hand that lock back and forth at every
+op and each tick takes many times its time alone.  One program at a time
+runs them back to back instead.  (The Paxos tick runs as one TorchScript
+program, ``ops.tick.paxos_tick_health``, which drops the interpreter lock
+once.)  On CUDA a program only queues launches, and takes no lock.
 """
 
 from __future__ import annotations

@@ -21,8 +21,9 @@ so the cluster owns
 
 Both planes live on one device: ``device=None`` means CUDA and raises where
 there is no card (``device.resolve_device``); tests pass ``device="cpu"``.
-The rebalancer daemon comes with a later slice of the port (placement,
-with the mesh) and raises ``NotImplementedError`` naming it.
+With ``cfg.placement.enabled`` the data-plane manager keeps per-group
+demand counters; :meth:`InProcessCluster.start_rebalancer` starts the
+periodic placement loop (:class:`RebalancerDaemon`) over them.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from .net.messenger import Messenger, NodeMap
 from .net.security import TransportSecurity
 from .paxos.driver import TickDriver
 from .paxos.manager import PaxosManager
+from .placement import GroupMigrator, MigrationStats, ShardRebalancer
 from .reconfiguration.active_replica import ActiveReplica
 from .reconfiguration.coordinator import PaxosReplicaCoordinator
 from .reconfiguration.demand import AbstractDemandProfile, DemandProfile
@@ -51,6 +53,82 @@ from .reconfiguration.rc_db import (
     RepliconfigurableReconfiguratorDB,
 )
 from .reconfiguration.reconfigurator import Reconfigurator
+
+
+class RebalancerDaemon:
+    """Periodic placement loop: ``ShardRebalancer.propose`` over the live
+    demand snapshot, ``GroupMigrator.execute_plan`` through the epoch
+    machinery.  OFF by default: started only by an explicit
+    :meth:`InProcessCluster.start_rebalancer`; its lifecycle is tied to the
+    node (``close()`` stops it)."""
+
+    def __init__(self, cluster: "InProcessCluster", interval_s: float = 1.0,
+                 *, table=None, stats: Optional[MigrationStats] = None,
+                 migrator: Optional[GroupMigrator] = None,
+                 rebalancer: Optional[ShardRebalancer] = None,
+                 **rebalancer_kw):
+        m = cluster.manager
+        if getattr(m, "_placement", None) is None:
+            raise RuntimeError(
+                "rebalancer daemon needs cfg.placement.enabled demand "
+                "counters on the data-plane manager"
+            )
+        gs, _per = m.shard_geometry()
+        self.m = m
+        self.driver = cluster.driver
+        self.interval_s = float(interval_s)
+        self.stats = stats or MigrationStats()
+        self.migrator = migrator or GroupMigrator(
+            cluster.coordinator, table=table, counters=m._placement,
+            stats=self.stats,
+        )
+        self.rebalancer = rebalancer or ShardRebalancer(
+            m.G, gs, **rebalancer_kw
+        )
+        self.moves_total = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="rebalancer", daemon=True
+        )
+        self._thread.start()
+
+    def _pump(self) -> None:
+        # the TickDriver owns the tick loop; the migrator just needs the
+        # plane to advance while it waits for the stop/checkpoint to land
+        self.driver.kick()
+        time.sleep(0.002)
+
+    def run_once(self) -> int:
+        """One propose/execute round; returns groups moved."""
+        demand = self.m.demand_snapshot()
+        if demand is None:
+            return 0
+        plan = self.rebalancer.propose(
+            self.m.tick_num, demand,
+            free_rows_in_shard=self.m.free_rows_in_shard,
+            blob_bytes=self.m.blob_bytes_of_row,
+        )
+        if not plan:
+            return 0
+        moved = self.migrator.execute_plan(plan, pump=self._pump)
+        if moved:
+            self.rebalancer.record_executed(moved)
+        else:
+            self.rebalancer.record_aborted()
+        self.moves_total += moved
+        return moved
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.run_once()
+            except Exception:
+                # a transient failure (shutdown race, full destination)
+                # must not kill the daemon; the next round re-plans
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
 
 
 class InProcessCluster:
@@ -152,6 +230,7 @@ class InProcessCluster:
         self.actives: Dict[str, ActiveReplica] = {}
         self.reconfigurators: Dict[str, Reconfigurator] = {}
         self.fds: Dict[str, FailureDetection] = {}
+        self.rebalancer: Optional[RebalancerDaemon] = None
         self._liveness: Dict[str, bool] = {n: True for n in rc_ids + active_ids}
 
         for a in active_ids:
@@ -293,12 +372,21 @@ class InProcessCluster:
         self._liveness[node_id] = False
 
     # ------------------------------------------------------------- placement
-    def start_rebalancer(self, interval_s: float = 1.0, **kw):
-        """The periodic placement loop (``RebalancerDaemon``) needs the
-        placement plane's demand counters."""
-        raise NotImplementedError(
-            "not ported yet: the rebalancer daemon (the placement slice, "
-            "with the mesh)")
+    def start_rebalancer(self, interval_s: float = 1.0,
+                         **kw) -> RebalancerDaemon:
+        """Start the periodic rebalancer (off by default).  ``kw`` passes
+        through to :class:`RebalancerDaemon` — ``table=`` to keep a
+        placement-override table in step with moves, plus any
+        :class:`ShardRebalancer` tuning (``skew_threshold``, ...)."""
+        if self.rebalancer is not None:
+            raise RuntimeError("rebalancer already running")
+        self.rebalancer = RebalancerDaemon(self, interval_s, **kw)
+        return self.rebalancer
+
+    def stop_rebalancer(self) -> None:
+        if self.rebalancer is not None:
+            self.rebalancer.stop()
+            self.rebalancer = None
 
     # ----------------------------------------------------------------- admin
     def kick(self) -> None:
@@ -332,6 +420,7 @@ class InProcessCluster:
             time.sleep(0.005)
 
     def close(self) -> None:
+        self.stop_rebalancer()
         for fd in self.fds.values():
             fd.close()
         # drivers stop BEFORE the messengers close: a tick flushing frames

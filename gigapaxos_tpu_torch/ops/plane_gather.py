@@ -21,13 +21,12 @@ which launches or raises.  There is no fallback between the two.  Each
 launch adds one to ``launches[name]``, however many arrays it carries.
 """
 
-from __future__ import annotations
-
 import ctypes
 import functools
 import math
 import threading
-from typing import Sequence, Tuple
+import warnings
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -129,42 +128,87 @@ def _launch(fn, name: str, arrs, outs, *args) -> None:
 
 # ----------------------------------------------------------- gather_planes
 
-def _plain_index(arr_shape, idx: torch.Tensor):
-    """The int64 index of the plain gather broadcast to the output's shape
-    ``[..., J, G]``, and the mask of its out-of-range entries (None when
-    there is none)."""
-    wp = arr_shape[-2]
-    if idx.dim() == 2 or tuple(arr_shape[:-2]) == tuple(idx.shape[:-2]):
-        lead = tuple(arr_shape[:-2])
-    else:
-        lead = tuple(torch.broadcast_shapes(arr_shape[:-2], idx.shape[:-2]))
-    shape = lead + tuple(idx.shape[-2:])
+def _lead_of(arr_lead: List[int], idx: torch.Tensor) -> List[int]:
+    """The output's leading shape: ``arr``'s, broadcast with a per-lead
+    index's."""
+    if idx.dim() == 2:
+        return arr_lead
+    il = idx.shape[:-2]
+    if il == arr_lead:
+        return arr_lead
+    n = max(len(il), len(arr_lead))
+    a = [1] * (n - len(arr_lead)) + arr_lead
+    b = [1] * (n - len(il)) + il
+    return [a[i] if b[i] == 1 else b[i] for i in range(n)]
+
+
+def _take_many(arrs: List[torch.Tensor], idx: torch.Tensor
+               ) -> List[torch.Tensor]:
+    """``out[..., j, g] = arr[..., idx[..., j, g], g]`` of each array, by
+    one ``torch.gather`` along the plane axis, 0 where the index is out of
+    range (the index broadcast and masked once)."""
+    arr0 = arrs[0]
+    wp = arr0.shape[-2]
+    lead = _lead_of(arr0.shape[:-2], idx)
+    shape = lead + idx.shape[-2:]
     bad = (idx < 0) | (idx >= wp)
-    if bad.any():
-        ix = idx.masked_fill(bad, 0).to(torch.int64).expand(shape)
-        return lead, ix, bad.expand(shape)
-    return lead, idx.to(torch.int64).expand(shape), None
+    any_bad = bool(bad.any())
+    ix = idx.masked_fill(bad, 0) if any_bad else idx
+    ix = ix.to(torch.int64).expand(shape)
+    outs: List[torch.Tensor] = []
+    for a in arrs:
+        if a.shape[:-2] != lead:
+            a = a.expand(lead + a.shape[-2:])
+        out = torch.gather(a, -2, ix)
+        if any_bad:
+            out = out.masked_fill(bad.expand(shape), 0)
+        outs.append(out)
+    return outs
 
 
-def _plain_take(arr, lead, ix, bad) -> torch.Tensor:
-    if tuple(arr.shape[:-2]) != lead:
-        arr = arr.expand(lead + tuple(arr.shape[-2:]))
-    out = torch.gather(arr, -2, ix)
-    return out if bad is None else out.masked_fill_(bad, 0)
+def _match_many(vals_list: List[torch.Tensor], keys: torch.Tensor,
+                idx: torch.Tensor) -> List[torch.Tensor]:
+    """The highest entry ``e`` with ``keys[..., e, g] == idx[j, g]`` per
+    output lane, then a gather of each vals array at it."""
+    v0 = vals_list[0]
+    if v0.shape[-2] == 0:
+        return [torch.zeros(v.shape[:-2] + idx.shape[-2:], dtype=v.dtype,
+                            device=v.device) for v in vals_list]
+    e = keys.shape[-2]
+    hit = keys.unsqueeze(-3) == idx.unsqueeze(-2)           # [..., J, E, G]
+    ent = torch.arange(e, dtype=torch.int32, device=keys.device)[:, None]
+    return _take_many(vals_list, torch.where(hit, ent, -1).amax(dim=-2))
+
+
+_scripted = {}
+_scripted_lock = threading.Lock()
+
+
+def _script(fn):
+    """``fn`` compiled by TorchScript once a process: a plain version is
+    then one call that drops the interpreter lock once, not one drop per
+    op (the ticks call it back from their own scripted programs)."""
+    with _scripted_lock:
+        if fn.__name__ not in _scripted:
+            with warnings.catch_warnings():
+                # torch.jit.script warns of its deprecation at each call
+                warnings.simplefilter("ignore", DeprecationWarning)
+                _scripted[fn.__name__] = torch.jit.script(fn)
+        return _scripted[fn.__name__]
 
 
 def gather_planes_plain(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version: one ``torch.gather`` along the plane axis, 0 where
     the index is out of range."""
-    return _plain_take(arr, *_plain_index(arr.shape, idx))
+    return gather_planes_many_plain((arr,), idx)[0]
 
 
 def gather_planes_many_plain(arrs: Sequence[torch.Tensor],
                              idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Plain version of the fused gather: :func:`gather_planes_plain` of
-    each array, the index prepared once."""
-    lead, ix, bad = _plain_index(arrs[0].shape, idx)
-    return tuple(_plain_take(a, lead, ix, bad) for a in arrs)
+    each array, the index prepared once, as one scripted call."""
+    with torch.jit.optimized_execution(False):
+        return tuple(_script(_take_many)(list(arrs), idx))
 
 
 def gather_planes_many_cuda(arrs: Sequence[torch.Tensor],
@@ -211,15 +255,6 @@ def gather_planes_cuda(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ match_planes
 
-def _match_entry(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The highest entry ``e`` with ``keys[..., e, g] == idx[j, g]`` as
-    ``[..., J, G]``, -1 where none matches."""
-    e = keys.shape[-2]
-    hit = keys.unsqueeze(-3) == idx.unsqueeze(-2)           # [..., J, E, G]
-    ent = torch.arange(e, dtype=torch.int32, device=keys.device)[:, None]
-    return torch.where(hit, ent, -1).amax(dim=-2)
-
-
 def match_planes_plain(vals: torch.Tensor, keys: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
     """Plain version: the highest matching entry per output lane, then a
@@ -231,13 +266,9 @@ def match_planes_many_plain(vals_list: Sequence[torch.Tensor],
                             keys: torch.Tensor,
                             idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Plain version of the fused match: :func:`match_planes_plain` of each
-    vals array, the matching entries found once."""
-    if vals_list[0].shape[-2] == 0:
-        return tuple(torch.zeros(v.shape[:-2] + idx.shape[-2:],
-                                 dtype=v.dtype, device=v.device)
-                     for v in vals_list)
-    lead, ix, bad = _plain_index(vals_list[0].shape, _match_entry(keys, idx))
-    return tuple(_plain_take(v, lead, ix, bad) for v in vals_list)
+    vals array, the matching entries found once, as one scripted call."""
+    with torch.jit.optimized_execution(False):
+        return tuple(_script(_match_many)(list(vals_list), keys, idx))
 
 
 def match_planes_many_cuda(vals_list: Sequence[torch.Tensor],

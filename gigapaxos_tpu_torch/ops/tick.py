@@ -12,7 +12,8 @@ broadcast over the leading replica axis.  All ring windows are
 ``[R, W, G]`` with G the minor axis; ring reads go through
 ``window.gather_planes_many`` and intake placement through
 ``window.match_planes_many``, which launch the hand-written CUDA kernels for
-CUDA tensors (``ops/plane_gather.py``).  The arrays that share an index are
+CUDA tensors (``ops/plane_gather.py``; a scripted tick on the CPU runs their
+plain versions inside its program).  The arrays that share an index are
 gathered in one call: five gathers and one match per tick, with or without
 fast re-election (its four extra window-to-ring reads ride the carryover's
 launch).
@@ -36,21 +37,31 @@ intermediate keeps the int32 wraparound arithmetic the slot and ballot
 comparisons rely on.  The tick never writes its input state: it returns
 fresh tensors.
 
-A sharded group axis (the mesh) is not ported; that option raises
-``NotImplementedError``.
+The tick is written in the subset of Python that TorchScript compiles:
+:func:`paxos_tick_health` runs it as one scripted program (an eager CPU
+tick drops and retakes the interpreter lock at each of its ~640 torch
+calls, and waits behind every other busy thread each time), and the eager
+entry points run the same functions op by op.  So
+the scripted functions spell their constants out (TorchScript takes no
+global ints or dtypes) and define every variable on every branch.
+
+A sharded group axis splits the tick between :func:`tick_front` and
+:func:`tick_back`, where the shards exchange the exec budget's per-row
+counts (``parallel/shard_tick.py``).
 """
 
-from __future__ import annotations
-
-from typing import NamedTuple
+import threading
+import warnings
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..paxos.state import PaxosState
 from ..types import GroupStatus, NO_REQUEST
 from .ballot import bal_ge, bal_gt
-from . import window
+from . import plane_gather, window
 
 I32 = torch.int32
 BOOL = torch.bool
@@ -105,22 +116,22 @@ class TickOutbox(NamedTuple):
     donor_status: torch.Tensor
 
 
-def _lexmax(n, c, dim):
+def _lexmax(n, c, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lexicographic (n, c) max along ``dim`` -> (n*, c*); masked entries
     must already be NEG_INF in ``n``."""
     nmax = n.amax(dim=dim, keepdim=True)
-    cmax = torch.where(n == nmax, c, NEG_INF).amax(dim=dim)
+    cmax = torch.where(n == nmax, c, -2147483648).amax(dim=dim)
     return nmax.squeeze(dim), cmax
 
 
-def _i32sum(x, dim):
-    return x.sum(dim=dim, dtype=I32)
+def _i32sum(x, dim: int):
+    return x.sum(dim=dim, dtype=torch.int32)
 
 
-def _excl_cumsum(x, dim):
+def _excl_cumsum(x, dim: int):
     """Exclusive int32 prefix count along ``dim`` (x: bool or int32)."""
-    xi = x.to(I32)
-    return torch.cumsum(xi, dim=dim, dtype=I32) - xi
+    xi = x.to(torch.int32)
+    return torch.cumsum(xi, dim=dim, dtype=torch.int32) - xi
 
 
 def _in_range_rows(rows, n: int, dev) -> torch.Tensor:
@@ -247,9 +258,9 @@ def _log2_hist(v, mask):
     (``torch.bincount`` would size its output from a device-to-host read
     of the maximum, a sync in the middle of the tick; a scatter-add into
     HB bins serializes on its atomics: 0.39 ms at G=917,504 on an H100.)"""
-    bits = torch.frexp(torch.clamp(v, min=0).to(torch.float64)).exponent
-    bucket = torch.where(mask, bits, HB)  # HB: unmasked, never counted
-    ar = torch.arange(HB, dtype=bits.dtype, device=v.device)
+    bits = torch.frexp(torch.clamp(v, min=0).to(torch.float64))[1]
+    bucket = torch.where(mask, bits, 32)  # HB: unmasked, never counted
+    ar = torch.arange(32, dtype=bits.dtype, device=v.device)
     return _i32sum(bucket[None, :] == ar[:, None], 1)
 
 
@@ -262,8 +273,9 @@ def _topk_rows(v, allocated, k: int):
     val = torch.where(allocated, torch.clamp(v, max=1 << 24), -1)
     rows = torch.arange(v.shape[0], dtype=torch.int64, device=v.device)
     key = ((val.to(torch.int64) + 1) << 32) | (0xFFFFFFFF - rows)
-    top = torch.topk(key, k).values
-    return ((top >> 32) - 1).to(I32), (0xFFFFFFFF - (top & 0xFFFFFFFF)).to(I32)
+    top = torch.topk(key, k)[0]
+    return (((top >> 32) - 1).to(torch.int32),
+            (0xFFFFFFFF - (top & 0xFFFFFFFF)).to(torch.int32))
 
 
 def _health_pack_impl(stall, churn, heat, backlog, allocated, wait_n,
@@ -280,111 +292,126 @@ def _health_pack_impl(stall, churn, heat, backlog, allocated, wait_n,
         torch.where(allocated, stall, 0).amax(),
         torch.where(allocated, churn, 0).amax(),
         wait_n,
-    ]).to(I32)
+    ]).to(torch.int32)
     parts = [gauges, _log2_hist(stall, allocated),
              _log2_hist(churn >> 4, allocated)]
-    for v in (stall, churn, heat):
-        parts += list(_topk_rows(v, allocated, topk))
+    for v in [stall, churn, heat]:
+        top_v, top_r = _topk_rows(v, allocated, topk)
+        parts.append(top_v)
+        parts.append(top_r)
     return torch.cat(parts)
 
 
-def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
-                    exec_budget: int = 0, group_axis=None,
-                    fast_elect: bool = False, lease: LeaseState = None,
-                    lease_horizon: int = 0, health: HealthState = None,
-                    wedge_ticks: int = 32, health_decay_shift: int = 6,
-                    health_topk: int = 8):
-    """One tick: returns ``(new_state, outbox)``, extended by ``(new_lease,
-    lease_pack)`` when ``lease`` is given and by ``(new_health,
-    health_pack)`` when ``health`` is (lease first).
+def _gather(arrs: List[torch.Tensor], idx: torch.Tensor
+            ) -> List[torch.Tensor]:
+    """The tick's ring gather: the hand kernel through
+    ``window.gather_planes_many`` on CUDA and in the eager tick; a scripted
+    tick on the CPU runs the plain version inside its own program."""
+    if torch.jit.is_scripting() and not arrs[0].is_cuda:
+        return plane_gather._take_many(arrs, idx)
+    return window.tick_gather(arrs, idx)
 
-    exec_budget: 0 = unlimited.  > 0 caps the TOTAL executions extracted
-    this tick across all (replica, group) pairs, ranked in (j, r, g) order
-    so every replica's first pending slot outranks anyone's second; the
-    kept set is a per-group run prefix.  Deferred decisions stay in the
-    decision ring (lossless backpressure).
 
-    own_row: -1 for Mode A (all rows authoritative).  ``>= 0`` confines
-    every state transition to that row (Mode B peer rows are mirrors).
+def _match(vals_list: List[torch.Tensor], keys: torch.Tensor,
+           idx: torch.Tensor) -> List[torch.Tensor]:
+    """The tick's intake match, as :func:`_gather`."""
+    if torch.jit.is_scripting() and not vals_list[0].is_cuda:
+        return plane_gather._match_many(vals_list, keys, idx)
+    return window.tick_match(vals_list, keys, idx)
 
-    fast_elect: consecutive-ballot fast re-election.  Off, the tick is the
-    classical election path, op for op.  On, three coupled rules apply:
-    a candidate whose promised ballot already equals the group maximum
-    over member rows takes over at the successor ballot without a prepare
-    round (``coord_fast``), seeding its proposals from every member row's
-    accepted window; an acceptor refuses a fast push that would overwrite a
-    different accepted value (the refusal still raises its promise); and a
-    fast coordinator that sees a higher-ballot accepted value differing
-    from its proposal adopts it and bumps its ballot by one.  A refusal
-    the coordinator can prove from its mirrors demotes it to a full
-    prepare at the next ballot.  Either way a tick launches 5 gathers and
-    1 match: the four ring reads of the adoption rule share the
-    carryover's index and go in its launch (8 arrays).
 
-    lease_horizon: ticks a grant or renewal keeps the lease valid.
-    wedge_ticks / health_decay_shift / health_topk: the health fold's
-    wedge threshold, EWMA decay and top-K width."""
-    if group_axis is not None:
-        raise NotImplementedError(
-            "a sharded group axis comes with the mesh slice of the port")
+class TickMid(NamedTuple):
+    """What the tick's first half (phases 0-4 up to the execution mask)
+    hands its second half (the exec budget, execution, freeze, outbox and
+    the lease and health folds).  The tick splits there because a sharded
+    group axis exchanges the exec budget's per-row counts between the
+    halves (``parallel/shard_tick.py``); unsharded, both halves run back
+    to back in one program.
 
+    ``st`` is the state after phases 0-3 (``exec_slot`` and ``status``
+    still the tick's input).  The lease fields are None without a lease."""
+
+    st: PaxosState
+    exec_mask: torch.Tensor  # bool [R, W, G], before the exec budget
+    d_req: torch.Tensor      # int32 [R, W, G]: decisions in exec order
+    d_stop: torch.Tensor     # bool [R, W, G]
+    has_coord: torch.Tensor  # bool [G]
+    w_c: torch.Tensor        # int32 [G]: the effective coordinator
+    decided_now: torch.Tensor  # int32 [G]
+    intake_taken: torch.Tensor  # bool [R, P, G]
+    base_serve: torch.Tensor    # int32 [G]
+    lclock: Optional[torch.Tensor]
+    lease_expired: Optional[torch.Tensor]
+    lease_wait: Optional[torch.Tensor]
+
+
+def _alive_at(ids, alive):
+    """Liveness lookup by node id (-1 -> False)."""
+    out = torch.zeros(ids.shape, dtype=torch.bool, device=ids.device)
+    for r in range(alive.shape[0]):
+        out = torch.where(ids == r, alive[r], out)
+    return out
+
+
+def tick_front(state: PaxosState, inbox: TickInbox, own_row: int = -1,
+               fast_elect: bool = False,
+               lease: Optional[LeaseState] = None) -> TickMid:
+    """Phases 0-4 of the tick up to the in-order execution mask (see
+    :func:`paxos_tick_impl`): 4 gathers and the match of the tick's 5 + 1
+    kernel calls."""
     R, G = state.exec_slot.shape
     W = state.acc_req.shape[1]
     P = inbox.req.shape[1]
     RP = R * P
     Wm = W - 1
+    NEG = -2147483648  # NEG_INF: TorchScript takes no global constants
     dev = state.exec_slot.device
 
     alive = inbox.alive
-    r_idx = torch.arange(R, dtype=I32, device=dev)[:, None]  # [R, 1]
+    r_idx = torch.arange(R, dtype=torch.int32, device=dev)[:, None]  # [R, 1]
     if own_row >= 0:
         own2 = r_idx == own_row
     else:
-        own2 = torch.ones((R, 1), dtype=BOOL, device=dev)
+        own2 = torch.ones((R, 1), dtype=torch.bool, device=dev)
     member = state.member  # [R, G] bool
-    is_active = state.status == int(GroupStatus.ACTIVE)
+    is_active = state.status == 1  # GroupStatus.ACTIVE
     acc_ok = member & alive[:, None] & is_active  # live active member
     # serve_ok: may serve decisions from its ring even after STOPPED, so a
     # laggard that missed the stop decision can still learn it
-    serve_ok = member & alive[:, None] & (state.status != int(GroupStatus.FREE))
+    serve_ok = member & alive[:, None] & (state.status != 0)  # not FREE
     maj = torch.div(state.n_members, 2, rounding_mode="floor") + 1  # [G]
     r_full = r_idx.expand(R, G)
 
-    def alive_at(ids):
-        """Liveness lookup by node id (-1 -> False)."""
-        out = torch.zeros(ids.shape, dtype=BOOL, device=dev)
-        for r in range(R):
-            out = torch.where(ids == r, alive[r], out)
-        return out
-
     # common window base: max exec slot among live members
-    exec_rel = torch.where(acc_ok, state.exec_slot, NEG_INF)
+    exec_rel = torch.where(acc_ok, state.exec_slot, NEG)
     any_live = acc_ok.any(dim=0)
     base = torch.where(any_live, exec_rel.amax(dim=0), 0)  # [G]
     base_serve = torch.where(
         serve_ok.any(dim=0),
-        torch.where(serve_ok, state.exec_slot, NEG_INF).amax(dim=0),
+        torch.where(serve_ok, state.exec_slot, NEG).amax(dim=0),
         0,
     )
-    jw = torch.arange(W, dtype=I32, device=dev)[:, None]  # [W, 1]
+    jw = torch.arange(W, dtype=torch.int32, device=dev)[:, None]  # [W, 1]
     s_j = base[None, :] + jw  # [W, G] absolute slots, window order
     i_j = torch.bitwise_and(s_j, Wm)  # [W, G] ring indices
 
     # ---------------- phase 0: candidacy ----------------
-    coord_dead = ~alive_at(state.bal_coord)
+    coord_dead = ~_alive_at(state.bal_coord, alive)
     caught_up = (state.exec_slot - base[None, :]) >= 0
     cand_ok = acc_ok & caught_up
-    first_live = torch.argmax(cand_ok.to(I32), dim=0).to(I32)  # first max
+    first_live = torch.argmax(cand_ok.to(torch.int32), dim=0).to(
+        torch.int32)  # first max
     im_cand = (r_idx == first_live[None, :]) & cand_ok
     have_auth = (state.coord_active | state.coord_preparing) & bal_ge(
         state.coord_bnum, r_idx, state.bal_num, state.bal_coord
     )
     start_any = im_cand & coord_dead & ~have_auth & own2
+    fast_start = start_any  # rebound below when fast_elect
     if fast_elect:
         # consecutive-ballot takeover: my promise is already the group max
         # over member rows (mirrors only ever under-report), so the ballot
         # below is the predecessor's immediate successor: skip prepare
-        gmax_bn = torch.where(member, state.bal_num, NEG_INF).amax(dim=0)
+        gmax_bn = torch.where(member, state.bal_num, NEG).amax(dim=0)
         consec = (state.bal_num == gmax_bn[None, :]) & (
             state.bal_num >= state.coord_bnum)
         fast_start = start_any & consec
@@ -402,12 +429,12 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
 
     # ---------------- phase 1: prepare / promise / carryover ----------------
     prep_mask = coord_preparing & acc_ok
-    pn = torch.where(prep_mask, coord_bnum, NEG_INF)
-    best_pn, best_pc = _lexmax(pn, r_full, dim=0)  # [G]
+    pn = torch.where(prep_mask, coord_bnum, NEG)
+    best_pn, best_pc = _lexmax(pn, r_full, 0)  # [G]
     upgrade = (
         acc_ok
         & own2
-        & (best_pn[None, :] != NEG_INF)
+        & (best_pn[None, :] != NEG)
         & bal_gt(best_pn[None, :], best_pc[None, :], state.bal_num,
                  state.bal_coord)
     )
@@ -429,13 +456,16 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     won = prep_mask & (promises >= maj[None, :]) & own2  # <= 1 winner per g
 
     # every replica's accepted window at the common base ring indices
-    a_bnum, a_bcoord, a_req, a_slot, a_stop = window.gather_planes_many(
-        (state.acc_bnum, state.acc_bcoord, state.acc_req, state.acc_slot,
-         state.acc_stop), i_j)
+    a_bnum, a_bcoord, a_req, a_slot, a_stop = _gather(
+        [state.acc_bnum, state.acc_bcoord, state.acc_req, state.acc_slot,
+         state.acc_stop], i_j)
     acc_here = (a_slot == s_j[None, :, :]) & (a_bnum >= 0)  # [R, W, G]
 
     # carryover: among the winner's promisers, max-ballot accepted pvalue
     promiser = (won[:, None, :] & match).any(dim=0)  # [R, G]
+    # the adoption rule's source and the fast flags; rebound when fast_elect
+    fast_any = won.any(dim=0)
+    m_n, m_c, m_req, m_stop = s_j, s_j, s_j, won
     if fast_elect:
         # a fast winner has no promisers: its carryover source is every
         # member row of its mirrors (a stale mirror under-reports, which
@@ -446,14 +476,13 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         # the adoption rule's source (phase 2a): the max-ballot accepted
         # pvalue per window slot over member rows, pre-tick facts only
         vis = member[:, None, :] & acc_here
-        m_n, m_c = _lexmax(torch.where(vis, a_bnum, NEG_INF), a_bcoord,
-                           dim=0)
+        m_n, m_c = _lexmax(torch.where(vis, a_bnum, NEG), a_bcoord, 0)
         m_sel = vis & (a_bnum == m_n[None]) & (a_bcoord == m_c[None])
         m_req = torch.where(m_sel, a_req, 0).amax(dim=0)  # [W, G]
         m_stop = (m_sel & a_stop).any(dim=0)
     else:
         eff = promiser[:, None, :] & acc_here
-    c_n, c_c = _lexmax(torch.where(eff, a_bnum, NEG_INF), a_bcoord, dim=0)
+    c_n, c_c = _lexmax(torch.where(eff, a_bnum, NEG), a_bcoord, 0)
     c_exists = eff.any(dim=0)
     sel = eff & (a_bnum == c_n[None]) & (a_bcoord == c_c[None])
     c_req = torch.where(sel, a_req, 0).amax(dim=0)
@@ -464,7 +493,7 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         # a fast winner also covers the predecessor's visible assignment
         # frontier (max member next_slot), capped at the ring's capacity:
         # slots assigned but unseen get noop proposals instead of gaps
-        next_mem = torch.where(member, state.next_slot, NEG_INF).amax(dim=0)
+        next_mem = torch.where(member, state.next_slot, NEG).amax(dim=0)
         fast_next = torch.minimum(torch.maximum(base + hi + 1, next_mem),
                                   base + W)  # [G]
         hi_eff = torch.where(fast_any, fast_next - base - 1, hi)
@@ -475,15 +504,16 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         c_valid = jw <= hi[None, :]  # [W, G] window order
     # window order -> ring order: ring plane i holds window offset (i-base)%W
     j_of_i = torch.bitwise_and(jw - base[None, :], Wm)  # [W, G]
+    ad_req, ad_stop, ad_n, ad_c = s_j, won, s_j, s_j  # rebound when fast
     if fast_elect:
         # the adoption rule's four ring reads share j_of_i: one launch
         (co_req, co_stop, co_valid, co_slot, ad_req, ad_stop, ad_n,
-         ad_c) = window.gather_planes_many(
-            (c_req, c_stop, c_valid, s_j, m_req, m_stop, m_n, m_c), j_of_i)
+         ad_c) = _gather(
+            [c_req, c_stop, c_valid, s_j, m_req, m_stop, m_n, m_c], j_of_i)
         won_any = won | fast_start
     else:
-        co_req, co_stop, co_valid, co_slot = window.gather_planes_many(
-            (c_req, c_stop, c_valid, s_j), j_of_i)
+        co_req, co_stop, co_valid, co_slot = _gather(
+            [c_req, c_stop, c_valid, s_j], j_of_i)
         won_any = won
     won3 = won_any[:, None, :]
     prop_req = torch.where(won3, co_req[None], state.prop_req)
@@ -498,8 +528,8 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         coord_fast = (coord_fast | fast_start) & ~won
     # retirement: somebody holds a promise above my ballot (preemption)
     pm_n, pm_c = _lexmax(
-        torch.where(acc_ok, bal_num, NEG_INF),
-        torch.where(acc_ok, bal_coord, NEG_INF), dim=0)
+        torch.where(acc_ok, bal_num, NEG),
+        torch.where(acc_ok, bal_coord, NEG), 0)
     retire = bal_gt(pm_n[None, :], pm_c[None, :], coord_bnum, r_idx)
     coord_active = coord_active & ~retire
     coord_preparing = coord_preparing & ~retire
@@ -508,26 +538,31 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     prop_valid = prop_valid & ~retire[:, None, :]
 
     # ---------------- phase 2a: intake + slot assignment ----------------
-    an = torch.where(coord_active & acc_ok, coord_bnum, NEG_INF)
-    w_n, w_c = _lexmax(an, r_full, dim=0)  # [G]
-    has_coord = w_n != NEG_INF
+    an = torch.where(coord_active & acc_ok, coord_bnum, NEG)
+    w_n, w_c = _lexmax(an, r_full, 0)  # [G]
+    has_coord = w_n != NEG
     is_win = (r_idx == w_c[None, :]) & has_coord[None, :] & own2  # [R, G]
 
     req_flat = inbox.req.reshape(RP, G)
     stop_flat = inbox.stop.reshape(RP, G)
     src_alive = alive[:, None, None].expand(R, P, G).reshape(RP, G)
     group_open = has_coord & (is_win & is_active).any(dim=0)
+    lclock: Optional[torch.Tensor] = None
+    lease_expired: Optional[torch.Tensor] = None
+    lease_wait: Optional[torch.Tensor] = None
     if lease is not None:
         # lease write fence: a coordinator that is not the lease holder
         # admits no new write until the prior lease expired past its skew
         # margin; already-assigned proposals keep pushing (the holder's
         # frontier covers them)
-        lclock = lease.clock + 1
-        lease_expired = lclock >= lease.until + lease.margin
-        fence_ok = (lease.holder < 0) | (lease.holder == w_c) | lease_expired
+        lclock_t = lease.clock + 1
+        expired_t = lclock_t >= lease.until + lease.margin
+        fence_ok = (lease.holder < 0) | (lease.holder == w_c) | expired_t
         lease_wait = group_open & ~fence_ok
         group_open = group_open & fence_ok
-    valid_in = (req_flat != NO_REQUEST) & src_alive & group_open[None, :]
+        lclock = lclock_t
+        lease_expired = expired_t
+    valid_in = (req_flat != 0) & src_alive & group_open[None, :]
     # FIFO admission without a sort: rank each valid entry by prefix count
     p_rank = _excl_cumsum(valid_in, 0)  # [RP, G] rank among valid
     k_total = _i32sum(valid_in, 0)  # [G]
@@ -546,7 +581,7 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
 
     ji = torch.bitwise_and(jw - w_next[None, :], Wm)  # [W, G]
     new_at_i = ji < k[None, :]  # ring planes receiving new proposals
-    nreq_i, nstop_i = window.match_planes_many((req_flat, stop_flat), q_key,
+    nreq_i, nstop_i = _match([req_flat, stop_flat], q_key,
                                                ji)
     nslot_i = w_next[None, :] + ji
     wmask = is_win[:, None, :] & new_at_i[None, :, :]
@@ -557,7 +592,6 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     next_slot = torch.where(is_win, w_next[None, :] + k[None, :], next_slot)
 
     intake_taken = taken_flat.reshape(R, P, G)
-
     if fast_elect:
         # fast-coordinator adoption + consecutive bump: a proposal seeded
         # from stale mirrors may conflict with a higher-ballot accepted
@@ -572,7 +606,7 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         adoptp = (
             fastc[:, None, :]
             & prop_valid
-            & (ad_n[None] != NEG_INF)
+            & (ad_n[None] != NEG)
             & (prop_slot == co_slot[None])
             & below
             & (prop_req != ad_req[None])
@@ -584,14 +618,14 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
 
     # ---------------- phase 2b: accept ----------------
     pushing = (coord_active & acc_ok)[:, None, :] & prop_valid  # [R, W, G]
-    cand_n = torch.where(pushing, coord_bnum[:, None, :], NEG_INF)
+    cand_n = torch.where(pushing, coord_bnum[:, None, :], NEG)
     cand_c = r_idx[:, :, None].expand(R, W, G)
-    b_n, b_c = _lexmax(cand_n, cand_c, dim=0)  # [W, G] best pushed ballot
+    b_n, b_c = _lexmax(cand_n, cand_c, 0)  # [W, G] best pushed ballot
     psel = pushing & (cand_n == b_n[None]) & (cand_c == b_c[None])
     p_req = torch.where(psel, prop_req, 0).amax(dim=0)
-    p_slot = torch.where(psel, prop_slot, NEG_INF).amax(dim=0)
+    p_slot = torch.where(psel, prop_slot, NEG).amax(dim=0)
     p_stop = (psel & prop_stop).any(dim=0)
-    exists = b_n != NEG_INF
+    exists = b_n != NEG
 
     d = p_slot[None, :, :] - state.exec_slot[:, None, :]  # [R, W, G]
     in_win = (d >= 0) & (d < W)
@@ -603,6 +637,7 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         & acc_ok[:, None, :]
         & own2[:, :, None]
     )
+    conflict = acceptable  # rebound when fast_elect
     if fast_elect:
         # conflict refusal: a push under a fast ballot never overwrites a
         # DIFFERENT accepted value (the fast reign collected no promises);
@@ -628,9 +663,9 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     acc_stop = torch.where(acceptable, p_stop[None], state.acc_stop)
     # promise-on-accept (accepting raises the promised ballot)
     ab_n, ab_c = _lexmax(
-        torch.where(pr_mask, b_n[None], NEG_INF),
-        torch.where(pr_mask, b_c[None], NEG_INF), dim=1)  # [R, G]
-    raise_p = (ab_n != NEG_INF) & bal_gt(ab_n, ab_c, bal_num, bal_coord)
+        torch.where(pr_mask, b_n[None], NEG),
+        torch.where(pr_mask, b_c[None], NEG), 1)  # [R, G]
+    raise_p = (ab_n != NEG) & bal_gt(ab_n, ab_c, bal_num, bal_coord)
     bal_num = torch.where(raise_p, ab_n, bal_num)
     bal_coord = torch.where(raise_p, ab_c, bal_coord)
     if fast_elect:
@@ -655,22 +690,21 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
 
     # ---------------- phase 2c: tally + quorum ----------------
     (A_bnum, A_bcoord, A_req, A_slot, A_stop, D_slot,
-     D_valid) = window.gather_planes_many(
-        (acc_bnum, acc_bcoord, acc_req, acc_slot, acc_stop, state.dec_slot,
-         state.dec_valid), i_j)
+     D_valid) = _gather(
+        [acc_bnum, acc_bcoord, acc_req, acc_slot, acc_stop, state.dec_slot,
+         state.dec_valid], i_j)
     voteable = (A_slot == s_j[None]) & (A_bnum >= 0) & acc_ok[:, None, :]
-    B_n, B_c = _lexmax(torch.where(voteable, A_bnum, NEG_INF), A_bcoord,
-                       dim=0)
+    B_n, B_c = _lexmax(torch.where(voteable, A_bnum, NEG), A_bcoord, 0)
     votes = voteable & (A_bnum == B_n[None]) & (A_bcoord == B_c[None])
     cnt = _i32sum(votes, 0)  # [W, G]
-    decided = (cnt >= maj[None, :]) & (B_n != NEG_INF)  # window order
+    decided = (cnt >= maj[None, :]) & (B_n != NEG)  # window order
     v_req = torch.where(votes, A_req, 0).amax(dim=0)
     v_stop = (votes & A_stop).any(dim=0)
     already = ((D_slot == s_j[None]) & D_valid).any(dim=0)  # [W, G]
     decided_now = _i32sum(decided & ~already, 0)  # [G]
 
-    de_req, de_stop, de_valid = window.gather_planes_many(
-        (v_req, v_stop, decided), j_of_i)
+    de_req, de_stop, de_valid = _gather(
+        [v_req, v_stop, decided], j_of_i)
     # the reference gathers to_ring(s_j) a second time here; s_j and j_of_i
     # have not changed since phase 1, so the values equal co_slot's
     de_slot = co_slot
@@ -684,7 +718,7 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
 
     # ---------------- phase 3: decision sync (laggard catch-up) ----------------
     rel = torch.where(dec_valid & serve_ok[:, None, :],
-                      dec_slot - base[None, None, :], NEG_INF)
+                      dec_slot - base[None, None, :], NEG)
     rel_best = rel.amax(dim=0)  # [W, G]
     sel_l = rel == rel_best[None]
     l_req = torch.where(sel_l, dec_req, 0).amax(dim=0)
@@ -693,7 +727,7 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     have = dec_valid & (dec_slot == l_slot[None])
     d2 = l_slot[None] - state.exec_slot[:, None, :]
     adopt = (
-        (rel_best[None] != NEG_INF)
+        (rel_best[None] != NEG)
         & (d2 >= 0)
         & (d2 < W)
         & ~have
@@ -707,73 +741,132 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     # ---------------- phase 4: in-order execution ----------------
     s_own = state.exec_slot[:, None, :] + jw[None]  # [R, W, G]
     i_own = torch.bitwise_and(s_own, Wm)
-    Dreq, Dslot, Dstop, Dval = window.gather_planes_many(
-        (dec_req, dec_slot, dec_stop, dec_valid), i_own)
+    Dreq, Dslot, Dstop, Dval = _gather(
+        [dec_req, dec_slot, dec_stop, dec_valid], i_own)
     ready = Dval & (Dslot == s_own) & acc_ok[:, None, :]
-    run = torch.cumprod(ready.to(I32), dim=1, dtype=I32).to(BOOL)
+    run = torch.cumprod(ready.to(torch.int32), dim=1,
+                        dtype=torch.int32).to(torch.bool)
     stop_hit = run & Dstop
     exec_mask = run & (_excl_cumsum(stop_hit, 1) == 0)
+
+    mid = PaxosState(
+        exec_slot=state.exec_slot, bal_num=bal_num, bal_coord=bal_coord,
+        status=state.status, acc_bnum=acc_bnum, acc_bcoord=acc_bcoord,
+        acc_req=acc_req, acc_slot=acc_slot, acc_stop=acc_stop,
+        dec_req=dec_req, dec_slot=dec_slot, dec_valid=dec_valid,
+        dec_stop=dec_stop, coord_active=coord_active,
+        coord_preparing=coord_preparing, coord_fast=coord_fast,
+        coord_bnum=coord_bnum, next_slot=next_slot, prop_req=prop_req,
+        prop_slot=prop_slot, prop_valid=prop_valid, prop_stop=prop_stop,
+        member=state.member, n_members=state.n_members, epoch=state.epoch)
+    return TickMid(mid, exec_mask, Dreq, Dstop, has_coord, w_c, decided_now,
+                   intake_taken, base_serve, lclock, lease_expired,
+                   lease_wait)
+
+
+def exec_row_counts(exec_mask):
+    """``[W, R]`` counts of a tick's would-be executions per (j, r) row of
+    the exec budget's (j, r, g) ranking: what a group shard hands the
+    others in the rank exchange."""
+    return _i32sum(exec_mask.transpose(0, 1), 2)
+
+
+def tick_back(state: PaxosState, inbox: TickInbox, m: TickMid,
+              exec_budget: int = 0, rank_base: Optional[torch.Tensor] = None,
+              fast_elect: bool = False, lease: Optional[LeaseState] = None,
+              lease_horizon: int = 0, health: Optional[HealthState] = None,
+              wedge_ticks: int = 32, health_decay_shift: int = 6,
+              health_topk: int = 8
+              ) -> Tuple[PaxosState, TickOutbox, Optional[LeaseState],
+                         Optional[torch.Tensor], Optional[HealthState],
+                         Optional[torch.Tensor]]:
+    """The tick's second half: the exec budget, execution, the freeze of
+    dead replicas, the outbox with its laggard summary, and the lease and
+    health folds.  Returns ``(state, outbox, lease, lease_pack, health,
+    health_pack)`` with None for an absent fold.
+
+    ``rank_base`` (``[W, R]``, a sharded group axis only): the executions
+    ranked before each (j, r) row of this shard's block, over every row
+    before it and the same row on earlier shards; None ranks the block as
+    the whole group axis."""
+    R, G = state.exec_slot.shape
+    W = state.acc_req.shape[1]
+    dev = state.exec_slot.device
+    NEG = -2147483648
+    alive = inbox.alive
+    member = state.member
+    r_full = torch.arange(R, dtype=torch.int32, device=dev)[:, None].expand(
+        R, G)
+    exec_mask = m.exec_mask
     if exec_budget > 0:
         # global budget: rank would-be executions in (j, r, g) order and
         # keep the first exec_budget (per-group run prefixes survive)
         em_t = exec_mask.transpose(0, 1).reshape(-1)  # (j, r, g) order
-        rank = _excl_cumsum(em_t, 0).reshape(W, R, G).transpose(0, 1)
-        exec_mask = exec_mask & (rank < exec_budget)
+        rank = _excl_cumsum(em_t, 0).reshape(W, R, G)
+        if rank_base is not None:
+            # G is one shard's block of the group axis: rebase the local
+            # (j, r, g) rank onto the global one (the count before this
+            # (j, r) row, on every shard, plus the same row on earlier
+            # shards), exact, so budget decisions equal the unsharded tick
+            blk = exec_row_counts(exec_mask).reshape(-1)
+            row_start = (torch.cumsum(blk, 0, dtype=torch.int32)
+                         - blk).reshape(W, R)
+            rank = rank + (rank_base - row_start)[:, :, None]
+        exec_mask = exec_mask & (rank.transpose(0, 1) < exec_budget)
+    Dreq, Dstop = m.d_req, m.d_stop
     n_exec = _i32sum(exec_mask, 1)  # [R, G]
-    exec_req_out = torch.where(exec_mask, Dreq, NO_REQUEST)
+    exec_req_out = torch.where(exec_mask, Dreq, 0)  # NO_REQUEST
     exec_stop_out = exec_mask & Dstop
     exec_base = state.exec_slot
     exec_slot = state.exec_slot + n_exec
     stopped_now = (exec_mask & Dstop).any(dim=1)
-    status = torch.where(stopped_now, int(GroupStatus.STOPPED), state.status)
+    status = torch.where(stopped_now, 2, state.status)  # STOPPED
 
+    mid = m.st
     # coordinator GC: stop pushing proposals already executed locally
-    prop_valid = prop_valid & (prop_slot - exec_slot[:, None, :] >= 0)
+    prop_valid = mid.prop_valid & (mid.prop_slot - exec_slot[:, None, :] >= 0)
 
     # ---------------- freeze dead replica slots ----------------
     al3 = alive[:, None, None]
     al2 = alive[:, None]
-
-    def fr2(new, old):
-        return torch.where(al2, new, old)
-
-    def fr3(new, old):
-        return torch.where(al3, new, old)
-
-    new_state = state._replace(
-        exec_slot=fr2(exec_slot, state.exec_slot),
-        bal_num=fr2(bal_num, state.bal_num),
-        bal_coord=fr2(bal_coord, state.bal_coord),
-        status=fr2(status, state.status),
-        acc_bnum=fr3(acc_bnum, state.acc_bnum),
-        acc_bcoord=fr3(acc_bcoord, state.acc_bcoord),
-        acc_req=fr3(acc_req, state.acc_req),
-        acc_slot=fr3(acc_slot, state.acc_slot),
-        acc_stop=fr3(acc_stop, state.acc_stop),
-        dec_req=fr3(dec_req, state.dec_req),
-        dec_slot=fr3(dec_slot, state.dec_slot),
-        dec_valid=fr3(dec_valid, state.dec_valid),
-        dec_stop=fr3(dec_stop, state.dec_stop),
-        coord_active=fr2(coord_active, state.coord_active),
-        coord_preparing=fr2(coord_preparing, state.coord_preparing),
-        coord_fast=(fr2(coord_fast, state.coord_fast) if fast_elect
-                    else state.coord_fast.clone()),
-        coord_bnum=fr2(coord_bnum, state.coord_bnum),
-        next_slot=fr2(next_slot, state.next_slot),
-        prop_req=fr3(prop_req, state.prop_req),
-        prop_slot=fr3(prop_slot, state.prop_slot),
-        prop_valid=fr3(prop_valid, state.prop_valid),
-        prop_stop=fr3(prop_stop, state.prop_stop),
+    if fast_elect:
+        coord_fast = torch.where(al2, mid.coord_fast, state.coord_fast)
+    else:
+        coord_fast = state.coord_fast.clone()
+    new_state = PaxosState(
+        exec_slot=torch.where(al2, exec_slot, state.exec_slot),
+        bal_num=torch.where(al2, mid.bal_num, state.bal_num),
+        bal_coord=torch.where(al2, mid.bal_coord, state.bal_coord),
+        status=torch.where(al2, status, state.status),
+        acc_bnum=torch.where(al3, mid.acc_bnum, state.acc_bnum),
+        acc_bcoord=torch.where(al3, mid.acc_bcoord, state.acc_bcoord),
+        acc_req=torch.where(al3, mid.acc_req, state.acc_req),
+        acc_slot=torch.where(al3, mid.acc_slot, state.acc_slot),
+        acc_stop=torch.where(al3, mid.acc_stop, state.acc_stop),
+        dec_req=torch.where(al3, mid.dec_req, state.dec_req),
+        dec_slot=torch.where(al3, mid.dec_slot, state.dec_slot),
+        dec_valid=torch.where(al3, mid.dec_valid, state.dec_valid),
+        dec_stop=torch.where(al3, mid.dec_stop, state.dec_stop),
+        coord_active=torch.where(al2, mid.coord_active, state.coord_active),
+        coord_preparing=torch.where(al2, mid.coord_preparing,
+                                    state.coord_preparing),
+        coord_fast=coord_fast,
+        coord_bnum=torch.where(al2, mid.coord_bnum, state.coord_bnum),
+        next_slot=torch.where(al2, mid.next_slot, state.next_slot),
+        prop_req=torch.where(al3, mid.prop_req, state.prop_req),
+        prop_slot=torch.where(al3, mid.prop_slot, state.prop_slot),
+        prop_valid=torch.where(al3, prop_valid, state.prop_valid),
+        prop_stop=torch.where(al3, mid.prop_stop, state.prop_stop),
+        member=state.member, n_members=state.n_members, epoch=state.epoch,
     )
     # ------------- laggard repair control summary (donor selection) --------
     # donor for laggard r = argmax post-tick exec over live members m != r,
     # ties to the lowest m: top-2 over the replica axis.
     post_exec = new_state.exec_slot
-    d_cand = torch.where(member & alive[:, None], post_exec, NEG_INF)
-    t1_exec, t1_nid = _lexmax(d_cand, -r_full, dim=0)  # [G]
+    d_cand = torch.where(member & alive[:, None], post_exec, NEG)
+    t1_exec, t1_nid = _lexmax(d_cand, -r_full, 0)  # [G]
     t2_exec, t2_nid = _lexmax(
-        torch.where(r_full == -t1_nid[None, :], NEG_INF, d_cand), -r_full,
-        dim=0)
+        torch.where(r_full == -t1_nid[None, :], NEG, d_cand), -r_full, 0)
     self_best = r_full == -t1_nid[None, :]
     d_exec = torch.where(self_best, t2_exec[None, :], t1_exec[None, :])
     d_id = torch.where(self_best, -t2_nid[None, :], -t1_nid[None, :])
@@ -781,25 +874,32 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
     d_ok = d_exec > post_exec
     d_status = torch.gather(new_state.status, 0,
                             d_id.clamp(0, R - 1).to(torch.int64))
+    has_coord, w_c = m.has_coord, m.w_c
     outbox = TickOutbox(
-        exec_req=torch.where(al3, exec_req_out, NO_REQUEST),
+        exec_req=torch.where(al3, exec_req_out, 0),
         exec_stop=al3 & exec_stop_out,
         exec_base=exec_base,
         exec_count=torch.where(al2, n_exec, 0),
-        intake_taken=intake_taken,
+        intake_taken=m.intake_taken,
         coord_id=torch.where(has_coord, w_c, -1),
-        decided_now=decided_now,
+        decided_now=m.decided_now,
         lag=torch.where(
-            member & (state.status != int(GroupStatus.FREE)),
-            torch.clamp(base_serve[None, :] - exec_slot, min=0),
+            member & (state.status != 0),
+            torch.clamp(m.base_serve[None, :] - exec_slot, min=0),
             0,
         ),
         donor=torch.where(d_ok, d_id, -1),
         donor_exec=torch.where(d_ok, d_exec, 0),
         donor_status=torch.where(d_ok, d_status, 0),
     )
-    res = (new_state, outbox)
+    new_lease: Optional[LeaseState] = None
+    lease_pack: Optional[torch.Tensor] = None
+    lease_wait = m.lease_wait
     if lease is not None:
+        lclock = m.lclock
+        lease_expired = m.lease_expired
+        assert lclock is not None and lease_expired is not None
+        assert lease_wait is not None
         # grant/renew: the effective winner renews by staying the winner;
         # a grant needs the previous lease gone (never held, or expired
         # past its margin)
@@ -813,23 +913,25 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         # included); a read is local only when the holder executed it all
         asn = torch.where(member, new_state.next_slot, 0).amax(dim=0)
         lease_pack = torch.stack([l_holder, l_epoch, l_until, asn,
-                                  lease_wait.to(I32)])
-        res += (LeaseState(lclock, l_holder, l_epoch, l_until, lease.margin),
-                lease_pack)
+                                  lease_wait.to(torch.int32)])
+        new_lease = LeaseState(lclock, l_holder, l_epoch, l_until,
+                               lease.margin)
+    new_health: Optional[HealthState] = None
+    health_pack: Optional[torch.Tensor] = None
     if health is not None:
         # health fold: read-only w.r.t. consensus.  Backlog = offered
         # intake, an assignment frontier ahead of the exec frontier, or an
         # unresolved election (the quorum-lost case)
         hclock = health.clock + 1
         allocated = member.any(dim=0)
-        offered_in = req_flat != NO_REQUEST
+        offered_in = inbox.req.reshape(-1, G) != 0
         offered = offered_in.any(dim=0)
         asn_h = torch.where(member, new_state.next_slot, 0).amax(dim=0)
         done_h = torch.where(member, new_state.exec_slot, 0).amax(dim=0)
         electing = (member & alive[:, None]
                     & new_state.coord_preparing).any(dim=0)
         backlog = (offered | (asn_h > done_h) | electing) & allocated
-        progress = (decided_now > 0) | (n_exec.amax(dim=0) > 0)
+        progress = (m.decided_now > 0) | (n_exec.amax(dim=0) > 0)
         h_last_active = torch.where(progress | ~backlog, hclock,
                                     health.last_active)
         # churn counts real handoffs only: a first election is not churn
@@ -839,17 +941,89 @@ def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
         h_last_coord = torch.where(has_coord, w_eff, health.last_coord)
         sh = health_decay_shift
         h_churn = (health.churn - (health.churn >> sh)
-                   + (handoff.to(I32) << 4))
+                   + (handoff.to(torch.int32) << 4))
         h_heat = (health.heat - (health.heat >> sh)
                   + (_i32sum(offered_in, 0) << 4))
         stall = torch.where(allocated & backlog, hclock - h_last_active, 0)
-        wait_n = (_i32sum(lease_wait, 0) if lease is not None
-                  else torch.zeros((), dtype=I32, device=dev))
+        if lease_wait is not None:
+            wait_n = _i32sum(lease_wait, 0)
+        else:
+            wait_n = torch.zeros((), dtype=torch.int32, device=dev)
         health_pack = _health_pack_impl(
             stall, h_churn, h_heat, backlog, allocated, wait_n,
             wedge_ticks, health_topk)
-        res += (HealthState(hclock, h_last_active, h_last_coord, h_churn,
-                            h_heat), health_pack)
+        new_health = HealthState(hclock, h_last_active, h_last_coord,
+                                 h_churn, h_heat)
+    return new_state, outbox, new_lease, lease_pack, new_health, health_pack
+
+
+def tick_core(state: PaxosState, inbox: TickInbox, own_row: int = -1,
+              exec_budget: int = 0, fast_elect: bool = False,
+              lease: Optional[LeaseState] = None, lease_horizon: int = 0,
+              health: Optional[HealthState] = None, wedge_ticks: int = 32,
+              health_decay_shift: int = 6, health_topk: int = 8
+              ) -> Tuple[PaxosState, TickOutbox, Optional[LeaseState],
+                         Optional[torch.Tensor], Optional[HealthState],
+                         Optional[torch.Tensor]]:
+    """Both halves of one unsharded tick, with fixed-arity results (see
+    :func:`tick_back`)."""
+    m = tick_front(state, inbox, own_row, fast_elect, lease)
+    return tick_back(state, inbox, m, exec_budget, None, fast_elect, lease,
+                     lease_horizon, health, wedge_ticks, health_decay_shift,
+                     health_topk)
+
+
+def paxos_tick_impl(state, inbox: TickInbox, own_row: int = -1,
+                    exec_budget: int = 0, rank_base=None,
+                    fast_elect: bool = False, lease: LeaseState = None,
+                    lease_horizon: int = 0, health: HealthState = None,
+                    wedge_ticks: int = 32, health_decay_shift: int = 6,
+                    health_topk: int = 8):
+    """One tick: returns ``(new_state, outbox)``, extended by ``(new_lease,
+    lease_pack)`` when ``lease`` is given and by ``(new_health,
+    health_pack)`` when ``health`` is (lease first).
+
+    exec_budget: 0 = unlimited.  > 0 caps the TOTAL executions extracted
+    this tick across all (replica, group) pairs, ranked in (j, r, g) order
+    so every replica's first pending slot outranks anyone's second; the
+    kept set is a per-group run prefix.  Deferred decisions stay in the
+    decision ring (lossless backpressure).
+
+    rank_base: the group-axis rank exchange of a sharded tick (see
+    :func:`tick_back`); None when the block is the whole group axis.
+
+    own_row: -1 for Mode A (all rows authoritative).  ``>= 0`` confines
+    every state transition to that row (Mode B peer rows are mirrors).
+
+    fast_elect: consecutive-ballot fast re-election.  Off, the tick is the
+    classical election path, op for op.  On, three coupled rules apply:
+    a candidate whose promised ballot already equals the group maximum
+    over member rows takes over at the successor ballot without a prepare
+    round (``coord_fast``), seeding its proposals from every member row's
+    accepted window; an acceptor refuses a fast push that would overwrite a
+    different accepted value (the refusal still raises its promise); and a
+    fast coordinator that sees a higher-ballot accepted value differing
+    from its proposal adopts it and bumps its ballot by one.  A refusal
+    the coordinator can prove from its mirrors demotes it to a full
+    prepare at the next ballot.  Either way a tick launches 5 gathers and
+    1 match: the four ring reads of the adoption rule share the
+    carryover's index and go in its launch (8 arrays).
+
+    lease_horizon: ticks a grant or renewal keeps the lease valid.
+    wedge_ticks / health_decay_shift / health_topk: the health fold's
+    wedge threshold, EWMA decay and top-K width.
+
+    This is the eager form; :func:`paxos_tick_health` runs the same two
+    halves as one TorchScript program."""
+    m = tick_front(state, inbox, own_row, fast_elect, lease)
+    st, out, le, lp, he, hp = tick_back(
+        state, inbox, m, exec_budget, rank_base, fast_elect, lease,
+        lease_horizon, health, wedge_ticks, health_decay_shift, health_topk)
+    res = (st, out)
+    if lease is not None:
+        res += (le, lp)
+    if health is not None:
+        res += (he, hp)
     return res
 
 
@@ -874,10 +1048,10 @@ def pack_outbox_impl(out: TickOutbox) -> torch.Tensor:
     """Flatten every outbox field into one int32 vector (single transfer)."""
     return torch.cat([
         out.exec_req.reshape(-1),
-        out.exec_stop.to(I32).reshape(-1),
+        out.exec_stop.to(torch.int32).reshape(-1),
         out.exec_base.reshape(-1),
         out.exec_count.reshape(-1),
-        out.intake_taken.to(I32).reshape(-1),
+        out.intake_taken.to(torch.int32).reshape(-1),
         out.coord_id.reshape(-1),
         out.decided_now.reshape(-1),
         out.lag.reshape(-1),
@@ -982,7 +1156,7 @@ def _scatter_dest(mask, budget: int) -> torch.Tensor:
 
 
 def _scatter_into(dst, vals, budget: int) -> torch.Tensor:
-    buf = torch.zeros(budget + 1, dtype=I32, device=vals.device)
+    buf = torch.zeros(budget + 1, dtype=torch.int32, device=vals.device)
     buf.scatter_(0, dst, vals)
     return buf[:budget]
 
@@ -993,50 +1167,37 @@ def _compact_outbox_impl(out: TickOutbox, exec_budget: int,
     P = out.intake_taken.shape[1]
     E, Lb = exec_budget, lag_budget
     dev = out.exec_req.device
-    ji = torch.arange(W, dtype=I32, device=dev)[None, :, None]
+    i32 = torch.int32
+    ji = torch.arange(W, dtype=i32, device=dev)[None, :, None]
     mask = ji < out.exec_count[:, None, :]  # [R, W, G]
     mf = mask.reshape(-1)
     dst = _scatter_dest(mf, E)
-
-    def scat(vals):
-        return _scatter_into(dst, vals.reshape(-1).to(I32), E)
-
     slot = out.exec_base[:, None, :] + ji
-    rep = torch.arange(R, dtype=I32, device=dev)[:, None, None].expand(R, W, G)
-    row = torch.arange(G, dtype=I32, device=dev)[None, None, :].expand(R, W, G)
-    meta = rep | (out.exec_stop.to(I32) << 8)
+    rep = torch.arange(R, dtype=i32, device=dev)[:, None, None].expand(R, W, G)
+    row = torch.arange(G, dtype=i32, device=dev)[None, None, :].expand(R, W, G)
+    meta = rep | (out.exec_stop.to(i32) << 8)
     n_exec = _i32sum(mf, 0)
     # intake: P bits per (r, g) — placed-and-taken
-    pb = torch.arange(P, dtype=I32, device=dev)[None, :, None]
-    taken_bits = _i32sum(out.intake_taken.to(I32) << pb, 1)  # [R, G]
+    pb = torch.arange(P, dtype=i32, device=dev)[None, :, None]
+    taken_bits = _i32sum(out.intake_taken.to(i32) << pb, 1)  # [R, G]
     # laggards needing checkpoint transfer (lag >= W): compacted pair list
     lmask = (out.lag >= W).reshape(-1)
     ldst = _scatter_dest(lmask, Lb)
-    rep2 = torch.arange(R, dtype=I32, device=dev)[:, None].expand(R, G)
-    row2 = torch.arange(G, dtype=I32, device=dev)[None, :].expand(R, G)
-
-    def lscat(vals):
-        return _scatter_into(ldst, vals.reshape(-1), Lb)
-
+    rep2 = torch.arange(R, dtype=i32, device=dev)[:, None].expand(R, G)
+    row2 = torch.arange(G, dtype=i32, device=dev)[None, :].expand(R, G)
     header = torch.stack([
         n_exec,
         _i32sum(out.decided_now, 0),
         _i32sum(lmask, 0),
     ])
-    return torch.cat([
-        header,
-        taken_bits.reshape(-1),
-        scat(out.exec_req),
-        scat(meta),
-        scat(slot),
-        scat(row),
-        lscat(rep2),
-        lscat(row2),
-        lscat(out.donor),
-        lscat(out.donor_exec),
-        lscat(out.donor_status),
-        lscat(out.exec_base + out.exec_count),  # laggard's post-tick exec
-    ])
+    parts = [header, taken_bits.reshape(-1)]
+    for v in [out.exec_req, meta, slot, row]:
+        parts.append(_scatter_into(dst, v.reshape(-1).to(i32), E))
+    # the last column is the laggard's post-tick exec
+    for v in [rep2, row2, out.donor, out.donor_exec, out.donor_status,
+              out.exec_base + out.exec_count]:
+        parts.append(_scatter_into(ldst, v.reshape(-1), Lb))
+    return torch.cat(parts)
 
 
 def paxos_tick_compact(state, inbox: TickInbox, own_row: int,
@@ -1148,7 +1309,8 @@ def unpack_compact(flat, R: int, G: int, exec_budget: int,
 # --------------------------------------------------------------------------
 
 
-def _split_inbox(inbox: TickInbox, g_log: int):
+def _split_inbox(inbox: TickInbox, g_log: int
+                 ) -> Tuple[TickInbox, TickInbox]:
     """The composite inbox cut at the plane boundary, each half contiguous
     (the kernels take contiguous rows)."""
     return (
@@ -1157,6 +1319,143 @@ def _split_inbox(inbox: TickInbox, g_log: int):
         TickInbox(inbox.req[:, :, g_log:].contiguous(),
                   inbox.stop[:, :, g_log:].contiguous(), inbox.alive),
     )
+
+
+def demand_fold(demand, per_row, decay: float):
+    """The placement demand EWMA, ``decay * demand + per_row`` in float32
+    with one rounding: the reference's XLA program fuses it into a
+    multiply-add.  The product of two float32 values is exact in float64,
+    so the fold runs there and rounds once."""
+    dec = torch.full((), decay, dtype=torch.float32, device=demand.device)
+    return (demand.to(torch.float64) * dec.to(torch.float64)
+            + per_row.to(torch.float64)).to(torch.float32)
+
+
+def tick_dispatch(state: PaxosState, rstate: Optional[PaxosState],
+                  lease: Optional[LeaseState], rlease: Optional[LeaseState],
+                  health: Optional[HealthState],
+                  rhealth: Optional[HealthState], inbox: TickInbox,
+                  own_row: int, exec_budget: int, lag_budget: int,
+                  lease_horizon: int, compact: bool, wedge_ticks: int,
+                  decay_shift: int, topk: int, scat_budget: int,
+                  fast_elect: bool, demand: Optional[torch.Tensor],
+                  demand_decay: float
+                  ) -> Tuple[PaxosState, Optional[PaxosState],
+                             Optional[LeaseState], Optional[LeaseState],
+                             Optional[HealthState], Optional[HealthState],
+                             torch.Tensor, Optional[torch.Tensor],
+                             Optional[torch.Tensor], Optional[torch.Tensor],
+                             Optional[torch.Tensor], Optional[torch.Tensor],
+                             Optional[torch.Tensor]]:
+    """The body :func:`paxos_tick_health` scripts (its arguments, plus the
+    placement demand fold): each plane's tick and outbox pack, and with
+    ``demand`` the log plane's per-row intake folded into the decaying
+    ``[G]`` float32 demand, ``d' = decay * d + sum(intake_taken)``.  Returns
+    the 12-tuple of :func:`paxos_tick_health` and the new demand."""
+    g_log = state.exec_slot.shape[1]
+    ib_l = inbox
+    ib_r = inbox
+    if rstate is not None:
+        ib_l, ib_r = _split_inbox(inbox, g_log)
+    state, out_l, lease, lp_l, health, hp_l = tick_core(
+        state, ib_l, own_row, exec_budget, fast_elect, lease, lease_horizon,
+        health, wedge_ticks, decay_shift, min(topk, g_log))
+    if compact:
+        pk_l = _compact_outbox_impl(out_l, scat_budget, lag_budget)
+    else:
+        pk_l = pack_outbox_impl(out_l)
+    new_demand: Optional[torch.Tensor] = None
+    if demand is not None:
+        new_demand = demand_fold(
+            demand, out_l.intake_taken.to(torch.int32).sum(
+                dim=(0, 1), dtype=torch.int32), demand_decay)
+    pk_r: Optional[torch.Tensor] = None
+    lp_r: Optional[torch.Tensor] = None
+    hp_r: Optional[torch.Tensor] = None
+    if rstate is not None:
+        rstate, out_r, rlease, lp_r, rhealth, hp_r = tick_core(
+            rstate, ib_r, own_row, exec_budget, fast_elect, rlease,
+            lease_horizon, rhealth, wedge_ticks, decay_shift,
+            min(topk, rstate.exec_slot.shape[1]))
+        if compact:
+            pk_r = _compact_outbox_impl(out_r, scat_budget, lag_budget)
+        else:
+            pk_r = pack_outbox_impl(out_r)
+    return (state, rstate, lease, rlease, health, rhealth, pk_l, pk_r, lp_l,
+            lp_r, hp_l, hp_r, new_demand)
+
+
+_scripted = {}
+_scripted_lock = threading.Lock()
+
+
+def scripted(fn):
+    """``fn`` (one of this module's tick functions) compiled by
+    TorchScript, once a process, at its first call.  The program runs in
+    the C++ interpreter with the interpreter lock released, retaken only
+    for the CUDA kernel calls (``window.tick_gather`` / ``tick_match``, 5 +
+    1 a plane; on the CPU the plain versions run inside the program), and
+    the callers run it with the graph executor's optimisations off: the
+    ops are the eager ones, in the same order, on every device."""
+    with _scripted_lock:
+        if fn.__name__ not in _scripted:
+            with warnings.catch_warnings():
+                # torch.jit.script warns of its deprecation at each call
+                warnings.simplefilter("ignore", DeprecationWarning)
+                _scripted[fn.__name__] = torch.jit.script(fn)
+        return _scripted[fn.__name__]
+
+
+def _own(res, classes):
+    """TorchScript hands named tuples back as its own copies of their
+    types: rebuild the leading entries of ``res`` as the package's
+    ``classes`` (None entries stay None)."""
+    res = list(res)
+    for i, cls in enumerate(classes):
+        if res[i] is not None:
+            res[i] = cls(*res[i])
+    return tuple(res)
+
+
+def run_front(state, inbox: TickInbox, own_row: int = -1,
+              fast_elect: bool = False, lease=None) -> TickMid:
+    """One scripted :func:`tick_front`."""
+    with torch.jit.optimized_execution(False):
+        m = scripted(tick_front)(state, inbox, own_row, fast_elect, lease)
+    return TickMid(PaxosState(*m[0]), *m[1:])
+
+
+def run_back(state, inbox: TickInbox, m: TickMid, exec_budget: int = 0,
+             rank_base=None, fast_elect: bool = False):
+    """One scripted :func:`tick_back` without the lease and health folds:
+    ``(state, outbox)``."""
+    with torch.jit.optimized_execution(False):
+        res = scripted(tick_back)(state, inbox, m, exec_budget, rank_base,
+                                  fast_elect)
+    return PaxosState(*res[0]), TickOutbox(*res[1])
+
+
+def run_compact(out: TickOutbox, exec_budget: int, lag_budget: int):
+    """One scripted :func:`_compact_outbox_impl`."""
+    with torch.jit.optimized_execution(False):
+        return scripted(_compact_outbox_impl)(out, exec_budget, lag_budget)
+
+
+def run_dispatch(state, rstate, lease, rlease, health, rhealth,
+                 inbox: TickInbox, own_row: int, exec_budget: int,
+                 lag_budget: int, lease_horizon: int, compact: bool,
+                 wedge_ticks: int = 32, decay_shift: int = 6, topk: int = 8,
+                 scat_budget: int = None, fast_elect: bool = False,
+                 demand=None, demand_decay: float = 0.0):
+    """One scripted :func:`tick_dispatch` (the 13-tuple)."""
+    scat = exec_budget if scat_budget is None else scat_budget
+    with torch.jit.optimized_execution(False):
+        res = scripted(tick_dispatch)(
+            state, rstate, lease, rlease, health, rhealth, inbox, own_row,
+            exec_budget, lag_budget, lease_horizon, compact, wedge_ticks,
+            decay_shift, topk, scat, fast_elect, demand, float(demand_decay))
+    return _own(res, (PaxosState, PaxosState, LeaseState, LeaseState,
+                      HealthState, HealthState))
 
 
 def paxos_tick_health(state, rstate, lease, rlease, health, rhealth,
@@ -1169,7 +1468,8 @@ def paxos_tick_health(state, rstate, lease, rlease, health, rhealth,
     plane (and the register plane when ``rstate`` is given), folds the
     lease columns when ``lease`` is given and the health columns when
     ``health`` is, per plane, and packs each plane's outbox compact or
-    full.  Absent planes and folds are ``None``.
+    full.  Absent planes and folds are ``None``.  It runs as one
+    TorchScript program (:func:`scripted`).
 
     Returns a fixed 12-tuple ``(state, rstate, lease, rlease, health,
     rhealth, out_l, out_r, lp_l, lp_r, hp_l, hp_r)`` with ``None`` in every
@@ -1178,38 +1478,25 @@ def paxos_tick_health(state, rstate, lease, rlease, health, rhealth,
     buffer when it differs from the exec budget (batched replay).
     ``fast_elect`` switches on fast re-election (see :func:`paxos_tick_impl`)
     in every plane."""
-    scat = exec_budget if scat_budget is None else scat_budget
+    return run_dispatch(state, rstate, lease, rlease, health, rhealth, inbox,
+                        own_row, exec_budget, lag_budget, lease_horizon,
+                        compact, wedge_ticks, decay_shift, topk, scat_budget,
+                        fast_elect)[:12]
 
-    def plane(st, ib, le, he, k):
-        res = paxos_tick_impl(
-            st, ib, own_row, exec_budget, fast_elect=fast_elect, lease=le,
-            lease_horizon=lease_horizon, health=he, wedge_ticks=wedge_ticks,
-            health_decay_shift=decay_shift, health_topk=k)
-        st2, out, rest = res[0], res[1], list(res[2:])
-        le2 = lp = he2 = hp = None
-        if le is not None:
-            le2, lp = rest[0], rest[1]
-            rest = rest[2:]
-        if he is not None:
-            he2, hp = rest
-        pk = (_compact_outbox_impl(out, scat, lag_budget)
-              if compact else pack_outbox_impl(out))
-        return st2, le2, he2, pk, lp, hp
 
-    g_log = state.exec_slot.shape[1]
-    if rstate is not None:
-        ib_l, ib_r = _split_inbox(inbox, g_log)
-    else:
-        ib_l, ib_r = inbox, None
-    state, lease, health, pk_l, lp_l, hp_l = plane(
-        state, ib_l, lease, health, min(topk, g_log))
-    pk_r = lp_r = hp_r = None
-    if rstate is not None:
-        rstate, rlease, rhealth, pk_r, lp_r, hp_r = plane(
-            rstate, ib_r, rlease, rhealth,
-            min(topk, rstate.exec_slot.shape[1]))
-    return (state, rstate, lease, rlease, health, rhealth,
-            pk_l, pk_r, lp_l, lp_r, hp_l, hp_r)
+def paxos_tick_compact_demand(state, inbox: TickInbox, demand,
+                              own_row: int, exec_budget: int,
+                              lag_budget: int, decay: float,
+                              fast_elect: bool = False):
+    """Tick + compaction + the placement demand fold in one program:
+    ``(state, flat, new_demand)``.  The fold reads the per-row intake (the
+    ``taken_bits`` popcount a host fold would take), so the samples equal
+    a host fold's."""
+    res = run_dispatch(state, None, None, None, None, None, inbox, own_row,
+                       exec_budget, lag_budget, 0, True,
+                       fast_elect=fast_elect, demand=demand,
+                       demand_decay=decay)
+    return res[0], res[6], res[12]
 
 
 def paxos_tick_mixed_packed(state, rstate, inbox: TickInbox,

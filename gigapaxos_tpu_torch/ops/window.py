@@ -11,10 +11,12 @@ coalesced.
 dispatchers: a CUDA tensor goes to the hand-written kernel in
 ``ops/plane_gather.py``, a CPU tensor to its plain version.  The ``_many``
 forms take several arrays that share one index, which one kernel launch
-then reads once for all of them; the tick calls only those.
+then reads once for all of them; the tick calls only those, through
+:func:`tick_gather` / :func:`tick_match`, which a scripted tick calls back
+in Python.
 """
 
-from __future__ import annotations
+from typing import List
 
 import torch
 
@@ -82,6 +84,24 @@ def match_planes_many(vals_list, keys, idx):
     if vals_list[0].device.type == "cpu":
         return plane_gather.match_planes_many_plain(vals_list, keys, idx)
     return plane_gather.match_planes_many_cuda(vals_list, keys, idx)
+
+
+@torch.jit.ignore
+def tick_gather(arrs: List[torch.Tensor],
+                idx: torch.Tensor) -> List[torch.Tensor]:
+    """The tick's gather call: :func:`gather_planes_many`, looked up at
+    each call.  A scripted tick calls it back in Python
+    (``torch.jit.ignore``), the one place its program retakes the
+    interpreter lock."""
+    return list(gather_planes_many(arrs, idx))
+
+
+@torch.jit.ignore
+def tick_match(vals_list: List[torch.Tensor], keys: torch.Tensor,
+               idx: torch.Tensor) -> List[torch.Tensor]:
+    """The tick's match call: :func:`match_planes_many`, as
+    :func:`tick_gather`."""
+    return list(match_planes_many(vals_list, keys, idx))
 
 
 def clear_below(arr, slot_of_entry, watermark, fill):

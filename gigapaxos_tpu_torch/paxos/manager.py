@@ -28,8 +28,15 @@ It owns:
 * the two measurement baselines (``emulate_unreplicated``,
   ``lazy_propagation``): the entry replica executes at admission.
 
-The mesh and placement come with later slices of the port and raise
-``NotImplementedError`` at construction.  ``fast_reelection`` is accepted
+* the sharded data plane (``mesh_devices``, ``parallel/shard_tick.py``):
+  one tick body a shard of a (replica, groups) mesh, bit-identical to the
+  single-device tick;
+* the placement demand plane (``placement.enabled``, ``placement/``):
+  per-group demand counters folded on the device (inside the scripted
+  compact tick, or after the mesh's shards) or on the host, read by the
+  rebalancer through :meth:`PaxosManager.demand_snapshot`.
+
+``fast_reelection`` is accepted
 and, as in the reference's Mode A manager, changes nothing here (only Mode
 B elects through it).
 """
@@ -60,9 +67,12 @@ from ..ops.tick import (LP_ASN, LP_EPOCH, LP_HOLDER, LP_UNTIL, LP_WAIT,
                         TickInbox, _host, frontier_rows, health_clear_rows,
                         init_health, init_lease, lease_clear_rows,
                         merge_compact_outbox,
-                        merge_health, merge_outbox, paxos_tick_health,
+                        merge_health, merge_outbox, pack_outbox_impl,
+                        paxos_tick_compact_demand, paxos_tick_health,
                         sweep_frontier, unpack_compact, unpack_health,
                         unpack_outbox)
+from ..parallel import shard_tick as _stk
+from ..parallel.mesh import GROUPS_AXIS, make_mesh
 from ..types import NO_REQUEST
 from ..utils.diskmap import DiskMap
 from ..utils.intmap import RowAllocator
@@ -90,17 +100,21 @@ class RequestRecord:
     responded: bool = False
 
 
-def _unported(cfg: GigapaxosTpuConfig) -> List[str]:
-    """Names of the set options whose planes this slice does not port (a
-    device-app mesh is refused with the reference's ValueError instead)."""
-    p = cfg.paxos
-    checks = [
-        (p.mesh_devices and not p.device_app,
-         "paxos.mesh_devices (the mesh slice)"),
-        (cfg.placement.enabled,
-         "placement.enabled (the placement slice, with the mesh)"),
-    ]
-    return [what for on, what in checks if on]
+def _mesh_for(p, device: torch.device):
+    """The mesh of ``paxos.mesh_devices`` devices (-1: every visible one):
+    ``cuda:0 .. cuda:n-1`` for a CUDA manager; on the CPU, ``n`` x ``cpu``
+    stand in for ``n`` devices."""
+    if device.type == "cpu":
+        devs = [device] * max(p.mesh_devices, 1)
+    else:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    n = len(devs) if p.mesh_devices < 0 else p.mesh_devices
+    if n > len(devs):
+        raise ValueError(
+            f"mesh_devices={n} but only {len(devs)} devices visible"
+        )
+    return make_mesh(devs[:n], replica_shards=p.mesh_replica_shards)
 
 
 def _refuse_device_app_combinations(cfg: GigapaxosTpuConfig) -> None:
@@ -140,14 +154,14 @@ class PaxosManager:
         wal=None,
         spill_ns: str = "default",
         device=None,
+        mesh=None,
     ):
         """``device`` defaults to CUDA (see ``device.resolve_device``);
         ``spill_ns`` names this manager's plane in metrics; ``wal`` is an
-        optional ``wal.logger.PaxosLogger``."""
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(missing))
+        optional ``wal.logger.PaxosLogger``.  ``mesh`` (a
+        ``parallel.mesh.Mesh``) runs the data plane on that mesh in place
+        of the one ``paxos.mesh_devices`` builds: several shards on one
+        card, for instance."""
         assert len(apps) == n_replicas
         self._device_app = bool(cfg.paxos.device_app)
         if self._device_app:
@@ -169,6 +183,69 @@ class PaxosManager:
                        if self.G_reg else None)
         self.rows = RowAllocator(self.G_total, split=self.G)
         self.apps = apps
+        # ---- sharded data plane (parallel/shard_tick) ----
+        # mesh_devices > 0 (or -1 = all): the tick runs once per shard of a
+        # (replica, groups) mesh, the hand kernels on each shard's block,
+        # the quorum exchange an explicit replica-axis all-gather.  The
+        # state stays global-view on self.device between ticks and the
+        # results equal the single-device path bit for bit, so everything
+        # downstream (WAL, replay, laggard repair, compaction layout) is
+        # unchanged.
+        self.mesh = None
+        self._mesh_tick = None
+        self._mesh_tick_compact = None
+        if cfg.paxos.mesh_devices or mesh is not None:
+            if self._device_app:
+                raise ValueError(
+                    "device_app + mesh_devices is not supported yet: the "
+                    "fused KV program has no shard_map formulation")
+            if self.G_reg:
+                raise ValueError(
+                    "register_groups + mesh_devices is not supported yet: "
+                    "the shard_map tick has no mixed-plane formulation"
+                )
+            self.mesh = (mesh if mesh is not None
+                         else _mesh_for(cfg.paxos, self.device))
+            _stk.validate_mesh_for(self.mesh, self.R, self.G)
+            if cfg.paxos.compact_outbox:
+                self._mesh_tick_compact = _stk.make_shardmap_tick_compact(
+                    self.mesh, -1, self._exec_budget_of(cfg),
+                    max(64, cfg.paxos.lag_budget),
+                    demand_decay=(cfg.placement.ewma_decay
+                                  if cfg.placement.enabled else None),
+                )
+            else:
+                self._mesh_tick = _stk.make_shardmap_tick(self.mesh, -1)
+        # ---- placement plane (placement/): advisory demand counters ----
+        # Not journaled and not in snapshots: a recovered node restarts
+        # with cold counters and waits out the rebalancer's min-interval
+        # guard; the migrations themselves ARE journaled (OP_CREATE_AT).
+        self._placement = None
+        self._demand_dev = None
+        if cfg.placement.enabled:
+            # (imported here: placement/ reaches reconfiguration/, which
+            # imports this module)
+            from ..placement.counters import PlacementCounters
+
+            gs = self.mesh.shape[GROUPS_AXIS] if self.mesh is not None else 1
+            self._placement = PlacementCounters(
+                self.G, gs,
+                decay=cfg.placement.ewma_decay,
+                sample_every_ticks=cfg.placement.sample_every_ticks,
+            )
+            if self._mesh_tick_compact is not None:
+                # device fold after the shards (make_shardmap_tick_compact)
+                self._demand_dev = _stk.init_demand(self.mesh, self.G,
+                                                    self.device)
+            elif cfg.paxos.compact_outbox and not self._device_app \
+                    and not self.G_reg and not cfg.paxos.read_leases \
+                    and not cfg.paxos.group_health:
+                # one device, compact: the intake-popcount fold runs inside
+                # the scripted tick program (paxos_tick_compact_demand).
+                # Mixed planes, leases, health and the device app keep the
+                # host fold (placement covers the LOG plane only).
+                self._demand_dev = torch.zeros(self.G, dtype=torch.float32,
+                                               device=self.device)
         self.alive = np.ones(self.R, bool)
         self.tick_num = 0
         self.outstanding: Dict[int, RequestRecord] = {}
@@ -250,6 +327,11 @@ class PaxosManager:
         self._lease_horizon = int(cfg.paxos.lease_ticks)
         self._lease_margin = int(cfg.paxos.lease_margin_ticks)
         if cfg.paxos.read_leases:
+            if self.mesh is not None:
+                raise ValueError(
+                    "read_leases + mesh_devices is not supported yet: the "
+                    "shard_map tick has no lease formulation"
+                )
             self._lease = init_lease(self.G, self._lease_margin, self.device)
             self._rlease = (init_lease(self.G_reg, self._lease_margin,
                                        self.device) if self.G_reg else None)
@@ -269,6 +351,11 @@ class PaxosManager:
         #: (newly wedged / recovered rows, top-K churn) land in its ring
         self.flight = None
         if cfg.paxos.group_health:
+            if self.mesh is not None:
+                raise ValueError(
+                    "group_health + mesh_devices is not supported yet: the "
+                    "shard_map tick has no health formulation"
+                )
             self._health = init_health(self.G, self.device)
             self._rhealth = (init_health(self.G_reg, self.device)
                              if self.G_reg else None)
@@ -298,8 +385,7 @@ class PaxosManager:
         self._w_np[self.G:] = 1
         # ---- compacted-outbox / bulk-propose machinery ----
         self._use_compact = bool(cfg.paxos.compact_outbox)
-        self._exec_budget = (cfg.paxos.exec_budget
-                             or max(4096, 2 * self.G_total))
+        self._exec_budget = self._exec_budget_of(cfg)
         self._lag_budget = max(64, cfg.paxos.lag_budget)
         bc = cfg.paxos.bulk_capacity or max(1 << 16, 4 * self.G)
         self._bulk_cap = 1 << (bc - 1).bit_length()
@@ -390,6 +476,9 @@ class PaxosManager:
     # The composite row space is [0, G) log + [G, G_total) register rows;
     # these helpers are the only places host code maps a composite row onto
     # one of the two device planes.
+
+    def _exec_budget_of(self, cfg: GigapaxosTpuConfig) -> int:
+        return cfg.paxos.exec_budget or max(4096, 2 * self.G_total)
 
     def is_register_row(self, row: int) -> bool:
         return row >= self.G
@@ -843,6 +932,48 @@ class PaxosManager:
         if row is None:
             return None
         return self._dev_exec_col(row)
+
+    # ---------------------------------------------------------- placement
+    def shard_geometry(self) -> tuple:
+        """(groups_shards, rows_per_shard): mesh shard k owns the
+        contiguous row range [k*per, (k+1)*per)."""
+        gs = self.mesh.shape[GROUPS_AXIS] if self.mesh is not None else 1
+        return gs, self.G // gs
+
+    @_locked
+    def free_rows_in_shard(self, shard: int) -> int:
+        """Free-row capacity of one mesh shard (rebalancer's budget)."""
+        gs, _per = self.shard_geometry()
+        lo, hi = st.shard_row_range(self.G, gs, shard)
+        return sum(1 for r in self.rows._free if lo <= r < hi)
+
+    @_locked
+    def blob_bytes_of_row(self, row: int) -> int:
+        """Checkpoint-blob size a migration of ``row`` would transfer (the
+        rebalancer's move-cost estimator; MigrationStats.bytes_transferred
+        records the same quantity after the fact).  0 for free rows.
+
+        Serializes one member's checkpoint, so call it only at plan time,
+        never per tick."""
+        name = self.rows.name(int(row))
+        if name is None:
+            return 0
+        for r in range(self.R):
+            if self.alive[r] and self._member_np[r, int(row)]:
+                blob = self.apps[r].checkpoint(name)
+                return len(blob) if blob is not None else 0
+        return 0
+
+    def demand_snapshot(self):
+        """Host view of the per-group demand EWMA [G] (None when the
+        placement plane is disabled).  Device-folded demand is pulled at
+        most every ``placement.sample_every_ticks`` ticks."""
+        p = self._placement
+        if p is None:
+            return None
+        if self._demand_dev is not None and p.should_sample():
+            p.sample_device()  # one device->host pull per sample window
+        return p.demand_snapshot()
 
     # ------------------------------------------------------------ pause
     def _resident_row(self, name: str) -> Optional[int]:
@@ -1806,6 +1937,36 @@ class PaxosManager:
                     self.state, self.kv, inbox, *reg, -1,
                     self._exec_budget, self._lag_budget)
             lease_pack = health_pack = None
+        elif self.mesh is not None:
+            # one body a shard (parallel/shard_tick); leases, health and
+            # register planes are refused with a mesh
+            with serial_on_cpu(self.device):
+                if self._mesh_tick is not None:
+                    self.state, out_g = self._mesh_tick(self.state, inbox)
+                    packed = pack_outbox_impl(out_g)
+                elif self._demand_dev is not None:
+                    # placement: the demand EWMA folds decided_now after
+                    # the shards, in the dispatch that compacts
+                    self.state, packed, self._demand_dev = (
+                        self._mesh_tick_compact(self.state, inbox,
+                                                self._demand_dev))
+                    self._placement.adopt_device(self._demand_dev)
+                else:
+                    self.state, packed = self._mesh_tick_compact(
+                        self.state, inbox)
+            lease_pack = health_pack = None
+        elif self._demand_dev is not None:
+            # placement on one device: the intake-demand EWMA folds inside
+            # the scripted compact tick program (leases, health and
+            # register planes keep the host fold)
+            with serial_on_cpu(self.device):
+                self.state, packed, self._demand_dev = (
+                    paxos_tick_compact_demand(
+                        self.state, inbox, self._demand_dev, -1,
+                        self._exec_budget, self._lag_budget,
+                        self._placement.decay))
+            self._placement.adopt_device(self._demand_dev)
+            lease_pack = health_pack = None
         else:
             # one dispatch covers every combination of planes and folds;
             # absent ones are None (the packed path runs with no budget)
@@ -1989,6 +2150,12 @@ class PaxosManager:
                         self._execute_one(r, int(row), name, rid, slot, is_stop)
         np.maximum(self._host_exec, eb + ec, out=self._host_exec)
         self.stats["decisions"] += int(out.decided_now.sum())
+        if self._placement is not None and self._demand_dev is None:
+            # host demand fold (full-outbox path): per-group decisions are
+            # visible here, unlike the compact flat buffer.  Placement
+            # covers the log plane only — slice off register columns.
+            self._placement.observe_intake(
+                np.asarray(out.decided_now)[:self.G])
         # self-heal laggards in full-outbox mode too: a replica >= W behind
         # can never catch up by ring sync (deferred to tick())
         if self.cfg.paxos.auto_laggard_sync:
@@ -2207,6 +2374,18 @@ class PaxosManager:
                 ti = np.concatenate(touched)
                 store.free_done(ti, self._member_bits[store.row[ti]])
         self.stats["decisions"] += co.decided_total
+        if self._placement is not None and self._demand_dev is None:
+            # host demand fold (compact path): per-group decisions are gone
+            # from the flat buffer, so fold the intake acceptance bits
+            # instead — popcount of each row's taken mask
+            bits = co.taken_bits.astype(np.int64)
+            per_row = np.zeros(bits.shape[1], np.int64)
+            for _ in range(self.P):
+                per_row += (bits & 1).sum(axis=0)
+                bits >>= 1
+            # placement covers the log plane only: composite register
+            # columns (rows >= G) are sliced off before the demand fold
+            self._placement.observe_intake(per_row[:self.G])
         self._lag_pending = (co.l_rep.copy(), co.l_row.copy(),
                              co.l_donor.copy(), co.l_dexec.copy(),
                              co.l_dstat.copy(), co.l_lexec.copy())

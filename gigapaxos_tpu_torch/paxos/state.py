@@ -26,8 +26,6 @@ values copy them first (:func:`clone_state`).  The tick itself
 (``ops/tick.py``) never writes its input state.
 """
 
-from __future__ import annotations
-
 from typing import NamedTuple
 
 import numpy as np
@@ -234,6 +232,25 @@ def free_groups(state: PaxosState, rows) -> PaxosState:
     state.member[:, r] = False
     state.n_members[r] = 0
     return state
+
+
+# ----------------------------------------------------------- shard geometry
+#
+# A groups-axis mesh shard owns a CONTIGUOUS row range of the [G] arrays
+# (parallel/mesh.py shards the minor axis in equal blocks).  The placement
+# plane's "migrate a group between shards" is therefore "re-home its name to
+# a row in a different range"; this is the one place that geometry is
+# written down.
+
+def shard_row_range(n_groups: int, groups_shards: int, shard: int) -> tuple:
+    """Row range ``[lo, hi)`` owned by mesh shard ``shard``."""
+    per = n_groups // groups_shards
+    return shard * per, (shard + 1) * per
+
+
+def shard_of_row(n_groups: int, groups_shards: int, row: int) -> int:
+    """Which mesh shard owns ``row``."""
+    return int(row) // (n_groups // groups_shards)
 
 
 # --------------------------------------------------------------- pause/spill

@@ -6,8 +6,8 @@ outstanding/unpaused counts dump (``PaxosManager.java:482-494``).
 :class:`StatsReporter` is that loop: registered sources are polled on an
 interval and emitted as one JSON line each through ``logging``
 (machine-parseable, journald/file friendly).  The sources here cover the
-nodes and the transport.  The per-shard load source reports the placement
-demand plane as disabled: the port's managers refuse ``placement.enabled``.
+nodes, the transport and the placement plane (per-shard demand loads and
+the migrator's counters).
 """
 
 from __future__ import annotations
@@ -127,10 +127,32 @@ def transport_stats_source(transport) -> Callable[[], dict]:
     return snap
 
 
-def shard_load_source(manager) -> Callable[[], dict]:
-    """Per-shard load gauge off the placement demand counters.  The port's
-    managers have none (placement is refused at construction), so it
-    reports ``{"enabled": False}``, as the reference's source does for a
-    manager without them."""
+def migration_stats_source(migrator) -> Callable[[], dict]:
+    """Placement-plane counters: plans emitted, groups moved, bytes
+    transferred, abort/retry counts (placement/migrator.MigrationStats)."""
 
-    return lambda: {"enabled": False}
+    def snap() -> dict:
+        return migrator.stats.snapshot()
+
+    return snap
+
+
+def shard_load_source(manager) -> Callable[[], dict]:
+    """Per-shard load gauge off the placement demand counters: the EWMA
+    demand summed over each mesh shard's row range, plus the max/min skew
+    ratio the rebalancer triggers on."""
+
+    def snap() -> dict:
+        p = getattr(manager, "_placement", None)
+        if p is None:
+            return {"enabled": False}
+        manager.demand_snapshot()  # refresh host mirror (sample-gated)
+        loads = p.shard_loads()
+        lo = max(float(loads.min()), 1e-9)
+        return {
+            "enabled": True,
+            "shard_loads": [round(float(x), 3) for x in loads],
+            "skew": round(float(loads.max()) / lo, 3),
+        }
+
+    return snap

@@ -277,3 +277,129 @@ def test_clear_client_cannot_reach_tls_server(cas):
                             _sec(P, cas[k], P.security.SSLMode.SERVER_AUTH),
                             6.0)[0]
     assert out["ref"] == out["port"] == []
+
+
+def _tick_profile(n_ticks=50):
+    """Torch calls of one eager manager tick program at the overload
+    cluster's shape (R=3, W=8, P=4, G=64, compact), and the program's ms
+    eager and scripted."""
+    import numpy as np
+
+    from gigapaxos_tpu_torch.ops import tick as pt
+    from gigapaxos_tpu_torch.paxos import state as pst
+
+    R, W, P, G = 3, 8, 4, 64
+    state = pst.create_groups(pst.init_state(R, G, W, device="cpu"),
+                              np.arange(G), np.ones((G, R), bool))
+    req = torch.zeros((R, P, G), dtype=torch.int32)
+    req[0, 0, :2] = torch.tensor([1, 2], dtype=torch.int32)
+    inbox = pt.TickInbox(req, torch.zeros((R, P, G), dtype=torch.bool),
+                         torch.ones(R, dtype=torch.bool))
+    budget, lag = max(4096, 2 * G), 64
+
+    def eager():
+        st, out = pt.paxos_tick_impl(state, inbox, -1, budget)
+        return st, pt._compact_outbox_impl(out, budget, lag)
+
+    def scripted():
+        return pt.paxos_tick_compact(state, inbox, -1, budget, lag)
+
+    class Count(torch.overrides.TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        eager()
+    out = {"torch_calls_eager": Count.n}
+    for name, fn in (("eager", eager), ("scripted", scripted)):
+        fn()
+        t = time.perf_counter()
+        for _ in range(n_ticks):
+            fn()
+        out[f"{name}_ms"] = 1e3 * (time.perf_counter() - t) / n_ticks
+    return out
+
+
+class _PhaseTimes:
+    """Per-package times of a manager tick's host phases and its device
+    program, gathered by wrapping the managers' methods."""
+
+    NAMES = ("tick", "_build_inbox", "_process_compact", "_complete_tick",
+             "_flush_callbacks")
+
+    def __init__(self):
+        import collections
+
+        self.t = collections.defaultdict(list)
+
+    def wrap(self, key, obj, name, as_name=None):
+        fn = getattr(obj, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.t[key, as_name or name].append(time.perf_counter() - t0)
+
+        setattr(obj, name, timed)
+
+    def take(self):
+        out = {}
+        for (key, name), xs in sorted(self.t.items()):
+            xs = sorted(xs)
+            out.setdefault(key, {})[name] = {
+                "n": len(xs), "mean_ms": 1e3 * sum(xs) / len(xs),
+                "p50_ms": 1e3 * xs[len(xs) // 2],
+                "p99_ms": 1e3 * xs[int(0.99 * (len(xs) - 1))]}
+        self.t.clear()
+        return out
+
+
+if __name__ == "__main__":
+    # python -m tests.test_torch_capacity: the open-loop rungs of
+    # test_open_loop_ramp_sheds_past_the_knee, both packages in one
+    # process as the fixture builds them, with each package's tick phases
+    # timed during every rung (the idle package's drivers keep ticking),
+    # and the port's tick program alone (torch calls, ms eager and
+    # scripted)
+    import json
+
+    import jax
+
+    from gigapaxos_tpu.paxos import manager as jmanager
+    from gigapaxos_tpu_torch.paxos import manager as tmanager
+
+    jax.config.update("jax_platforms", "cpu")
+    torch.set_num_threads(1)
+    print(json.dumps({"tick_program": _tick_profile()}))
+    phases = _PhaseTimes()
+    for key, mod in (("ref", jmanager), ("port", tmanager)):
+        for name in _PhaseTimes.NAMES:
+            phases.wrap(key, mod.PaxosManager, name)
+    phases.wrap("port", tmanager, "paxos_tick_health", "program")
+    built = {k: P.openloop.make_overload_cluster(n_groups=2, intake_hi=64,
+                                                 **P.kw)
+             for k, P in PKGS.items()}
+    try:
+        time.sleep(1.0)
+        phases.take()
+        time.sleep(2.0)
+        print(json.dumps({"idle_2s": phases.take()}))
+        for k, P in PKGS.items():
+            gen = P.openloop.OpenLoopGenerator(built[k][1], ["g0", "g1"],
+                                               deadline_s=2.0)
+            calm = gen.run_rung(n_clients=300, think_s=1.0, duration_s=0.8)
+            phases.take()
+            over = gen.run_rung(n_clients=4000, think_s=1.0, duration_s=1.0,
+                                drain_s=4.0)
+            print(json.dumps({"pkg": k, "calm": calm.to_dict(),
+                              "over": over.to_dict(),
+                              "phases_during_over": phases.take()}))
+    finally:
+        for cluster, client in built.values():
+            client.close()
+            cluster.close()

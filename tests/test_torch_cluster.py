@@ -58,10 +58,20 @@ def make_cfg(config_cls, n_active=5, n_rc=3):
 
 
 def test_unported_cluster_options_raise():
+    """The placement plane, once refused here, now builds: the data-plane
+    manager keeps demand counters over one shard, and the rebalancer
+    daemon starts and stops."""
     cfg = make_cfg(PortConfig)
     cfg.placement.enabled = True
-    with pytest.raises(NotImplementedError, match="placement slice"):
-        PortCluster(cfg, PortKV, device="cpu")
+    cl = PortCluster(cfg, PortKV, device="cpu")
+    try:
+        assert cl.manager._placement is not None
+        assert cl.manager.shard_geometry() == (1, 64)
+        cl.start_rebalancer(interval_s=5.0)
+        cl.stop_rebalancer()
+        assert cl.rebalancer is None
+    finally:
+        cl.close()
 
 
 def test_cluster_defaults_to_cuda():

@@ -161,11 +161,16 @@ def test_validate_raises_on_the_same_bad_values(section, name, value,
 
 
 def test_managers_still_refuse_placement():
+    """``placement.enabled`` from a config, once refused, now builds the
+    demand counters with the config's decay and sample window."""
     from gigapaxos_tpu_torch.models.replicable import KVApp
     from gigapaxos_tpu_torch.paxos.manager import PaxosManager
 
     cfg = tconfig.GigapaxosTpuConfig()
     cfg.paxos.max_groups = 8
     cfg.placement.enabled = True
-    with pytest.raises(NotImplementedError, match="placement"):
-        PaxosManager(cfg, 3, [KVApp() for _ in range(3)], device="cpu")
+    m = PaxosManager(cfg, 3, [KVApp() for _ in range(3)], device="cpu")
+    assert m._placement.decay == cfg.placement.ewma_decay
+    assert (m._placement.sample_every_ticks
+            == cfg.placement.sample_every_ticks)
+    assert m.demand_snapshot().shape == (8,)

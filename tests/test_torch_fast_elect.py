@@ -225,10 +225,17 @@ def test_fast_tick_makes_five_gathers_and_one_match(monkeypatch):
 
     monkeypatch.setattr(window, "gather_planes_many", gather)
     monkeypatch.setattr(window, "match_planes_many", match)
+    R, P, G = 3, 4, 4
+    req = torch.zeros((R, P, G), dtype=torch.int32)
+    req[0, 0, 1] = 7
+    inbox = pt.TickInbox(req, torch.zeros((R, P, G), dtype=torch.bool),
+                         torch.ones(R, dtype=torch.bool))
     for fast, carry in ((False, 4), (True, 8)):
         calls["gather"].clear()
         calls["match"] = 0
         tw = Twin(fast=fast)
-        tw.tick(reqs=[(0, 1, 7)])
+        # the eager form of the Twin's tick: its scripted CPU program runs
+        # the plain versions inside the program, past these dispatchers
+        pt.paxos_tick_impl(tw.t, inbox, tw.own_row, 0, fast_elect=fast)
         assert len(calls["gather"]) == 5 and calls["match"] == 1, calls
         assert calls["gather"][1] == carry, calls

@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 import gigapaxos_tpu_torch
 
 PKG = Path(gigapaxos_tpu_torch.__file__).resolve().parent
@@ -34,7 +36,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "placement", "placement.table", "txn", "txn.transactor",
               "reconfiguration.dns_edge", "reconfiguration.http_edge",
               "testing", "testing.capacity", "testing.openloop",
-              "testing.certs"):
+              "testing.certs", "placement.counters",
+              "placement.rebalancer", "placement.migrator", "parallel",
+              "parallel.mesh", "parallel.shard_tick",
+              "testing.modeb_worker", "testing.server_worker"):
         assert f"gigapaxos_tpu_torch.{m}" in mods
     assert _loaded_reference_modules(mods) == ""
 
@@ -86,6 +91,57 @@ def test_cells_txn_edges_and_harnesses_alone_load_no_jax():
          "gigapaxos_tpu_torch.reconfiguration.http_edge",
          "gigapaxos_tpu_torch.testing.capacity",
          "gigapaxos_tpu_torch.testing.openloop"]) == ""
+
+
+def test_placement_mesh_and_workers_alone_load_no_jax():
+    """The placement plane, the mesh and the process-level workers,
+    imported on their own."""
+    assert _loaded_reference_modules(
+        ["gigapaxos_tpu_torch.placement.counters",
+         "gigapaxos_tpu_torch.placement.rebalancer",
+         "gigapaxos_tpu_torch.placement.migrator",
+         "gigapaxos_tpu_torch.parallel.mesh",
+         "gigapaxos_tpu_torch.parallel.shard_tick",
+         "gigapaxos_tpu_torch.testing.modeb_worker",
+         "gigapaxos_tpu_torch.testing.server_worker"]) == ""
+
+
+def test_refusal_sites_are_gone():
+    """The four places earlier slices refused the mesh and placement: the
+    manager's option check, the tick's sharded group axis, the node's
+    rebalancer and the shard-load source.  Each now builds or runs."""
+    import torch
+
+    from gigapaxos_tpu_torch.config import GigapaxosTpuConfig
+    from gigapaxos_tpu_torch.models.replicable import KVApp
+    from gigapaxos_tpu_torch.ops import tick as pt
+    from gigapaxos_tpu_torch.paxos import manager as pm
+    from gigapaxos_tpu_torch.paxos import state as pst
+    from gigapaxos_tpu_torch.utils.observability import shard_load_source
+
+    assert not hasattr(pm, "_unported")
+    cfg = GigapaxosTpuConfig()
+    cfg.paxos.max_groups = 64
+    cfg.paxos.mesh_devices = 8
+    cfg.placement.enabled = True
+    m = pm.PaxosManager(cfg, 3, [KVApp() for _ in range(3)], device="cpu")
+    assert m.shard_geometry() == (8, 8)
+    m.create_paxos_instance("g", [0, 1, 2])
+    m.propose("g", b"PUT a 1", lambda *a: None)
+    m.run_ticks(4)
+    snap = shard_load_source(m)()
+    assert snap["enabled"] and len(snap["shard_loads"]) == 8
+    # the tick's second half takes a group shard's rank base
+    R, G, W = 3, 8, 4
+    s = pst.create_groups(pst.init_state(R, G, W, device="cpu"),
+                          np.arange(G), np.ones((G, R), bool))
+    ib = pt.make_inbox(R, G, 2, device="cpu")
+    pt.paxos_tick_impl(s, ib, -1, 16, torch.zeros((W, R), dtype=torch.int32))
+    node_src = (PKG / "node.py").read_text()
+    assert "not ported yet" not in node_src
+    assert "def start_rebalancer" in node_src
+    tick_src = (PKG / "ops" / "tick.py").read_text()
+    assert "NotImplementedError" not in tick_src
 
 
 def test_cell_worker_process_loads_no_jax(tmp_path):

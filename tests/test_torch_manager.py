@@ -288,12 +288,14 @@ def test_bulk_compact_pipelined_with_crash_and_repair(pipeline):
 
 @pytest.mark.parametrize("option,value", [("mesh_devices", 2)])
 def test_unported_options_raise(option, value):
+    """The mesh, once refused, now builds: two ``cpu`` shards of the
+    group axis."""
     cfg = tcfg.GigapaxosTpuConfig()
     cfg.paxos.max_groups = 8
     setattr(cfg.paxos, option, value)
-    with pytest.raises(NotImplementedError):
-        tmgr.PaxosManager(cfg, 3, [trep.NoopApp() for _ in range(3)],
+    m = tmgr.PaxosManager(cfg, 3, [trep.NoopApp() for _ in range(3)],
                           device="cpu")
+    assert m.mesh is not None and m.shard_geometry() == (2, 4)
 
 
 @pytest.mark.parametrize("option,extra", [
@@ -334,18 +336,18 @@ def test_ported_options_match_reference(option, extra):
 
 
 def test_wal_raises_and_cuda_default_needs_card(monkeypatch, tmp_path):
-    """A durable manager still refuses an unported plane (the WAL is
-    ported; the mesh is not), and without a card the CUDA default
-    raises."""
+    """A durable mesh manager builds (the mesh, once refused, is ported),
+    and without a card the CUDA default raises."""
     from gigapaxos_tpu_torch.wal.logger import PaxosLogger
 
     cfg = tcfg.GigapaxosTpuConfig()
     cfg.paxos.max_groups = 8
     cfg.paxos.mesh_devices = 2
     apps = [trep.NoopApp() for _ in range(3)]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tmgr.PaxosManager(cfg, 3, apps, device="cpu",
+    m = tmgr.PaxosManager(cfg, 3, apps, device="cpu",
                           wal=PaxosLogger(str(tmp_path), native=False))
+    assert m.mesh is not None and m.wal is not None
+    m.wal.close()
     cfg.paxos.mesh_devices = 0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
