@@ -33,12 +33,10 @@ import socket
 import ssl as _ssl
 import struct
 import threading
-import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..obs.metrics import registry as _obs_registry
 from ..overload import CLS_CLIENT, CLS_CONTROL, CLS_NAMES
-from ..utils.profiler import profiler
 from .security import TransportSecurity
 
 KIND_JSON = 0
@@ -515,14 +513,12 @@ class Transport:
                 kind, payload = frame
                 self._count("rcvd")
                 self._count_peer("rx_bytes", sender, len(payload))
-                t0 = time.monotonic()
                 try:
                     self.demux(sender, kind, payload)
                 except Exception:
                     # handler bugs must not kill the reader (the reference
                     # logs and continues, AbstractPacketDemultiplexer)
                     self._count("demux_errors")
-                profiler.update_delay("net.demux", t0)
         finally:
             if reader is not None:
                 self._count("recv_syscalls", reader.syscalls)

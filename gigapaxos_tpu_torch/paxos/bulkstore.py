@@ -19,6 +19,7 @@ the analog of the reference's MAX_OUTSTANDING_REQUESTS throttle,
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -47,6 +48,9 @@ class BulkStore:
         #: costs more than the whole vectorized lifecycle
         self.pay_len = np.zeros(capacity, np.int32)
         self.response = np.empty(capacity, object)
+        #: ``time.perf_counter()`` of the request's last stage change:
+        #: admission, then placement (the manager's request waits)
+        self.t_stage = np.zeros(capacity, np.float64)
         #: lowest rid that may still be live (slots below are reclaimable)
         self.lo = 0
         self.hi = 0  # one past the highest rid ever admitted
@@ -68,11 +72,13 @@ class BulkStore:
             self.lo += 1
 
     def admit(self, rid0: int, rows: np.ndarray, entries: np.ndarray,
-              stops: Optional[np.ndarray], payloads) -> np.ndarray:
+              stops: Optional[np.ndarray], payloads,
+              now: Optional[float] = None) -> np.ndarray:
         """Admit a contiguous rid block [rid0, rid0+n); returns the rids.
 
         ``payloads``: a sequence of bytes (len n) or one bytes object shared
-        by every request (zero-copy fan-out for generated load).
+        by every request (zero-copy fan-out for generated load).  ``now``:
+        the block's admission stamp (``time.perf_counter()`` by default).
         """
         n = len(rows)
         if rid0 + n - self.lo > self.cap:
@@ -104,6 +110,12 @@ class BulkStore:
                 (len(p) for p in payloads), np.int32, count=n
             )
         self.response[idx] = None
+        # the block's slots are one or two runs of the ring
+        s, e = rid0 & self.mask, (rid0 & self.mask) + n
+        if now is None:
+            now = time.perf_counter()
+        self.t_stage[s:min(e, self.cap)] = now
+        self.t_stage[:max(0, e - self.cap)] = now
         self.n_live += n
         return rids
 
@@ -142,6 +154,7 @@ class BulkStore:
                 count=len(ni),
             )
         self.response[ni] = None
+        self.t_stage[ni] = time.perf_counter()
         self.n_live += len(ni)
         if len(rids):
             self.lo = min(self.lo, int(rids.min())) if self.hi else int(rids.min())
@@ -234,6 +247,7 @@ class BulkStore:
             count=len(rids),
         )
         self.response[idx] = as_obj(snap.get("response", [None] * len(rids)))
+        self.t_stage[idx] = time.perf_counter()
         self.valid[idx] = True
         self.lo = int(snap["lo"])
         self.hi = int(snap["hi"])

@@ -48,6 +48,7 @@ import itertools
 import os
 import struct
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -61,6 +62,7 @@ from ..models.device_kv import DeviceKVApp, fused_compact, init_kv
 from ..models.replicable import Replicable
 from ..obs.metrics import registry as _obsreg
 from ..obs.phase import BLOCKING_PHASE as _BLOCKING_PHASE
+from ..obs.phase import device_timers as _device_timers
 from ..obs.phase import phase_clock as _phase_clock
 from ..ops.tick import (LP_ASN, LP_EPOCH, LP_HOLDER, LP_UNTIL, LP_WAIT,
                         CompactHostOutbox, CompactLayout, HostOutbox,
@@ -258,6 +260,8 @@ class PaxosManager:
         )  # row -> rids waiting for intake
         # callbacks released at the end of each completed tick
         self._held_callbacks: list = []
+        #: rid arrays of the bulk requests those callbacks release
+        self._held_rids: list = []
         #: scope openers run around each callback flush; each returns a
         #: closer (the active replica's per-tick client egress coalescing)
         self._flush_scope_hooks: list = []
@@ -466,6 +470,16 @@ class PaxosManager:
         #: sync point); cfg.obs.blocking_phases adds "device_step"
         self._pc = _phase_clock("modea", plane=spill_ns)
         self._obs_block = bool(cfg.obs.blocking_phases)
+        #: device time of the inbox upload, the dispatch and the outbox
+        #: copy, read a tick or two late without a sync (CUDA, one device)
+        self._dt = _device_timers("modea", spill_ns, ("upload", "tick",
+                                                      "copy"),
+                                  self.device if self.mesh is None else None)
+        #: a bulk request's wait from admission to placement ("queue") and
+        #: from placement to the release of its response ("order")
+        self._wait_h = {stage: _obsreg().histogram(
+            "request_wait_seconds", help="bulk request wait per stage",
+            plane=spill_ns, stage=stage) for stage in ("queue", "order")}
         # control-plane threads call the admin/propose API while a driver
         # loops on tick(); one reentrant lock serializes them
         self.lock = ContendedLock()
@@ -1351,6 +1365,7 @@ class PaxosManager:
         Callbacks and sinks fire only once the WAL covering the request's
         tick is fsynced (log-before-respond).
         """
+        t_in = time.perf_counter()  # the requests' wait starts here
         if self._device_app and not self._in_kv_admit:
             raise ValueError(
                 "device-app managers admit bulk work via propose_bulk_kv "
@@ -1451,7 +1466,7 @@ class PaxosManager:
                 for p in payloads
             ]
         rids = store.admit(rid0, rows.astype(np.int32), ent, stops,
-                           payloads)
+                           payloads, now=t_in)
         if batch_sink is not None:
             self._sink_blocks.append([rid0, n_adm, n_adm, batch_sink])
         if callbacks is not None:
@@ -1536,6 +1551,8 @@ class PaxosManager:
             self._sink_route(rids, responses)
         if not self._bulk_cbs:
             return
+        held = self._held_callbacks
+        n0 = len(held)
         if responses is None:
             for rid in rids:
                 cb = self._bulk_cbs.pop(int(rid), None)
@@ -1550,6 +1567,12 @@ class PaxosManager:
                         # device-app responses are int32 scalars
                         resp = struct.pack("<i", int(resp))
                     self._held_callbacks.append((cb, int(rid), resp))
+        n = len(held) - n0
+        if n == len(rids):
+            self._held_rids.append(np.asarray(rids, np.int64))
+        elif n:
+            self._held_rids.append(np.fromiter(
+                (h[1] for h in held[n0:]), np.int64, count=n))
 
     def _sink_route(self, rids, responses) -> None:
         """Deliver completions to their rid-block sinks: ONE thunk per
@@ -1586,6 +1609,7 @@ class PaxosManager:
                 s(o, rr)
 
             self._held_callbacks.append((fire, -1, None))
+            self._held_rids.append(offs + blk[0])
         if gc:
             self._sink_blocks = [b for b in blocks if b[2] > 0]
 
@@ -1702,7 +1726,9 @@ class PaxosManager:
                 self.reqtrace.event(rid, "failed", reason="group_fenced")
 
     # ------------------------------------------------------------------- tick
-    def _build_inbox(self) -> TickInbox:
+    def _build_inbox(self, reg=None):
+        """This tick's inbox on the device, and the device app's descriptor
+        columns ``reg`` uploaded with it."""
         self._drain_staged()
         # lazily clear last tick's placements instead of reallocating R*P*G
         req, stp = self._in_req, self._in_stp
@@ -1752,10 +1778,15 @@ class PaxosManager:
         # the host copy: the device copy is never read back)
         self._inbox_alive = self.alive.copy()
         # device copies: the staging buffers are mutated next tick
-        dev = self.device
-        return TickInbox(torch.from_numpy(req).to(dev, copy=True),
-                         torch.from_numpy(stp).to(dev, copy=True),
-                         torch.from_numpy(self._inbox_alive).to(dev))
+        dev, dt = self.device, self._dt
+        t_up = dt.start()
+        inbox = TickInbox(torch.from_numpy(req).to(dev, copy=True),
+                          torch.from_numpy(stp).to(dev, copy=True),
+                          torch.from_numpy(self._inbox_alive).to(dev))
+        if reg is not None:
+            reg = tuple(torch.from_numpy(c).to(dev) for c in reg)
+        dt.stop("upload", t_up)
+        return inbox, reg
 
     def _place_bulk(self, req, stp, placed) -> None:
         """Vectorized placement of the bulk queue into the staging arrays:
@@ -1839,14 +1870,30 @@ class PaxosManager:
                 p[sel] += cnt
         fit = (p >= 0) & (p < self.P)
         if fit.any():
-            fe, fp, fr = entries[fit], p[fit], rows[fit]
+            fe, fp, fr, fi = entries[fit], p[fit], rows[fit], idx[fit]
             req[fe, fp, fr] = q[fit].astype(np.int32)
-            stp[fe, fp, fr] = store.stop[idx[fit]]
+            stp[fe, fp, fr] = store.stop[fi]
             self._bulk_placed = (q[fit], fe, fp, fr)
+            self._observe_wait("queue", fi)
         rest = q[~fit]
         parts = [p for p in (rest, hold, qk) if p.size]
         self._bulk_leftover = (np.concatenate(parts) if len(parts) > 1
                                else (parts[0] if parts else rest))
+
+    def _observe_wait(self, stage: str, idx) -> None:
+        """Observe the time since each bulk store slot ``idx`` was last
+        stamped into ``stage``'s wait; a placement ("queue") stamps the
+        slots anew."""
+        t = self.bulk.t_stage
+        w = t[idx]
+        now = time.perf_counter()
+        if stage == "queue":
+            t[idx] = now
+        # stamps come in blocks (one an admission or a placement): each run
+        # of equal stamps is observed once, with its length
+        starts = np.flatnonzero(np.r_[True, w[1:] != w[:-1]])
+        self._wait_h[stage].observe_array(
+            now - w[starts], np.diff(np.r_[starts, len(w)]))
 
     def _run_due_laggard_syncs(self) -> None:
         """Run checkpoint transfers noticed during tick completion, at the
@@ -1921,12 +1968,14 @@ class PaxosManager:
                 + (self.bulk.n_live if self.bulk is not None else 0))
         self._run_due_laggard_syncs()
         pc.mark("repair")
-        if self._device_app:
-            # the descriptor upload rides the same fused call as the tick;
-            # the watermark advances BEFORE the build so those rids place
-            reg = self._take_kv_uploads()
-        inbox = self._build_inbox()
+        # the device app's descriptor upload rides the same fused call as
+        # the tick; the watermark advances BEFORE the build so those rids
+        # place
+        reg = self._take_kv_uploads() if self._device_app else None
+        inbox, reg = self._build_inbox(reg)
         pc.mark("intake")
+        dt = self._dt
+        t_tick = dt.start()
         placed = self._placed
         bulk_placed = self._bulk_placed
         if self._device_app:
@@ -1995,6 +2044,7 @@ class PaxosManager:
         ):
             frontier = self._frontier_gather(sweep_frontier(
                 self.state.exec_slot, self.state.member, inbox.alive))
+        dt.stop("tick", t_tick)
         if self._obs_block:
             # opt-in exact device step: costs the pipeline overlap
             self._sync_device()
@@ -2017,7 +2067,7 @@ class PaxosManager:
                 # outbox moments ago; hand that stashed result out
                 out, self._drained_out = self._drained_out, None
             self._pending_out = (packed, placed, bulk_placed, frontier,
-                                 lease_pack, health_pack)
+                                 lease_pack, health_pack, pc.tick)
             # a due checkpoint must cover on-host effects of every tick the
             # device state contains — drain the one-tick pipeline first
             if self.wal is not None and self.wal.checkpoint_due():
@@ -2031,16 +2081,24 @@ class PaxosManager:
         return out
 
     def _complete_tick(self, packed, placed: list, bulk_placed=None,
-                       frontier=None, lease_pack=None, health_pack=None):
+                       frontier=None, lease_pack=None, health_pack=None,
+                       tick=None):
         """Consume one tick's outbox (the device->host copy is the sync
         point): adopt the lease and health packs, requeue rejected intake,
         execute the ordered decision stream, release callbacks, periodic
         GC.  Mixed planes hand a (log, register) pair of buffers, merged
-        into the composite row space."""
+        into the composite row space.  ``tick``: the phase clock's number
+        of the tick that dispatched the outbox (None: the current one)."""
         pc = self._pc
         # re-arm without observing: drain_pipeline completes a deferred tick
         # outside tick(), and cross-call idle time must not land in "tally"
-        pc.touch()
+        pc.touch(tick)
+        dt = self._dt
+        t_copy = dt.start()
+        packed = (tuple(_host(p) for p in packed)
+                  if isinstance(packed, tuple) else _host(packed))
+        dt.stop("copy", t_copy)
+        dt.poll()
         if lease_pack is not None:
             self._adopt_lease_pack(lease_pack)
         if health_pack is not None:
@@ -2054,7 +2112,6 @@ class PaxosManager:
                                    self._exec_budget, self._lag_budget),
                     self.G)
             else:
-                packed = _host(packed)
                 out = unpack_compact(packed, self.R, self.G,
                                      self._exec_budget, self._lag_budget)
             e_resp = e_miss = None
@@ -2110,6 +2167,11 @@ class PaxosManager:
         if self.wal is not None and not self.wal.is_synced():
             return
         held, self._held_callbacks = self._held_callbacks, []
+        rids, self._held_rids = self._held_rids, []
+        if rids:
+            idx = np.concatenate(rids)
+            idx &= self.bulk.mask
+            self._observe_wait("order", idx)
         closers = [h() for h in self._flush_scope_hooks]
         try:
             for cb, rid, resp in held:
