@@ -348,10 +348,10 @@ class _NullDeviceTimers:
 _NULL_TIMERS = _NullDeviceTimers()
 
 
-def device_timers(driver: str, plane: str, parts, device):
-    """:class:`DeviceTimers` on a CUDA ``device``'s current stream (the one
-    its ticks then run on); the no-op twin on any other device and under
-    ``GPTPU_METRICS=0``."""
+def device_timers(driver: str, plane: str, parts, device, stream=None):
+    """:class:`DeviceTimers` on ``stream``, by default a CUDA ``device``'s
+    current stream (the one its ticks then run on); the no-op twin on any
+    other device and under ``GPTPU_METRICS=0``."""
     if not METRICS_ENABLED or getattr(device, "type", None) != "cuda":
         return _NULL_TIMERS
     import torch
@@ -359,4 +359,5 @@ def device_timers(driver: str, plane: str, parts, device):
     return DeviceTimers(
         driver, plane, parts,
         event=lambda: torch.cuda.Event(enable_timing=True),
-        stream=torch.cuda.current_stream(device))
+        stream=(torch.cuda.current_stream(device) if stream is None
+                else stream))

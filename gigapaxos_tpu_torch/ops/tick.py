@@ -1256,31 +1256,37 @@ class CompactLayout:
 
 
 def unpack_compact(flat, R: int, G: int, exec_budget: int,
-                   lag_budget: int) -> CompactHostOutbox:
-    """Host-side inverse of :func:`_compact_outbox_impl` (views into the
-    one transferred buffer)."""
+                   lag_budget: int, own: bool = False) -> CompactHostOutbox:
+    """Host-side inverse of :func:`_compact_outbox_impl`: views into the
+    one transferred buffer, or with ``own`` copies of its used parts (the
+    n_exec-long exec columns, taken_bits, the recorded laggard rows), so
+    the buffer may be written again."""
     flat = _host(flat)
     L = CompactLayout(R, G, exec_budget, lag_budget)
     E, Lb = L.E, L.Lb
     n_exec, decided_total, lag_n = (int(flat[0]), int(flat[1]), int(flat[2]))
+
+    def cut(o, n):
+        return flat[o:o + n].copy() if own else flat[o:o + n]
+
     o = L.o_exec
-    e_rid = flat[o:o + n_exec]; o += E
+    e_rid = cut(o, n_exec); o += E
     e_meta = flat[o:o + n_exec]; o += E
-    e_slot = flat[o:o + n_exec]; o += E
-    e_row = flat[o:o + n_exec]; o += E
+    e_slot = cut(o, n_exec); o += E
+    e_row = cut(o, n_exec); o += E
     assert o == L.o_lag
     ln = min(lag_n, Lb)
-    l_rep = flat[o:o + ln]; o += Lb
-    l_row = flat[o:o + ln]; o += Lb
-    l_donor = flat[o:o + ln]; o += Lb
-    l_dexec = flat[o:o + ln]; o += Lb
-    l_dstat = flat[o:o + ln]; o += Lb
-    l_lexec = flat[o:o + ln]
+    l_rep = cut(o, ln); o += Lb
+    l_row = cut(o, ln); o += Lb
+    l_donor = cut(o, ln); o += Lb
+    l_dexec = cut(o, ln); o += Lb
+    l_dstat = cut(o, ln); o += Lb
+    l_lexec = cut(o, ln)
     return CompactHostOutbox(
         n_exec=n_exec,
         decided_total=decided_total,
         lag_n=lag_n,
-        taken_bits=flat[L.o_taken:L.o_taken + R * G].reshape(R, G),
+        taken_bits=cut(L.o_taken, R * G).reshape(R, G),
         e_rid=e_rid,
         e_rep=e_meta & 0xFF,
         e_row=e_row,

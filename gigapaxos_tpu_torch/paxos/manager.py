@@ -66,7 +66,7 @@ from ..obs.phase import device_timers as _device_timers
 from ..obs.phase import phase_clock as _phase_clock
 from ..ops.tick import (LP_ASN, LP_EPOCH, LP_HOLDER, LP_UNTIL, LP_WAIT,
                         CompactHostOutbox, CompactLayout, HostOutbox,
-                        TickInbox, _host, frontier_rows, health_clear_rows,
+                        TickInbox, frontier_rows, health_clear_rows,
                         init_health, init_lease, lease_clear_rows,
                         merge_compact_outbox,
                         merge_health, merge_outbox, pack_outbox_impl,
@@ -82,6 +82,7 @@ from ..utils.locking import ContendedLock, locked as _locked
 from ..utils.reqtrace import tracer as _reqtrace
 from . import state as st
 from .bulkstore import BulkStore
+from .outcopy import OutboxCopier
 from .paystore import PayloadStore
 
 #: process-wide manager counter for trace namespaces (never reused)
@@ -470,11 +471,14 @@ class PaxosManager:
         #: sync point); cfg.obs.blocking_phases adds "device_step"
         self._pc = _phase_clock("modea", plane=spill_ns)
         self._obs_block = bool(cfg.obs.blocking_phases)
-        #: device time of the inbox upload, the dispatch and the outbox
-        #: copy, read a tick or two late without a sync (CUDA, one device)
-        self._dt = _device_timers("modea", spill_ns, ("upload", "tick",
-                                                      "copy"),
+        #: device time of the inbox upload and the dispatch, read a tick
+        #: or two late without a sync (CUDA, one device)
+        self._dt = _device_timers("modea", spill_ns, ("upload", "tick"),
                                   self.device if self.mesh is None else None)
+        #: the outbox's copy to the host, started at dispatch into a ring of
+        #: host buffers (pinned, on a copy stream, for a CUDA outbox) and
+        #: timed there as part "copy"
+        self._outcopy = OutboxCopier("modea", spill_ns)
         #: a bulk request's wait from admission to placement ("queue") and
         #: from placement to the release of its response ("order")
         self._wait_h = {stage: _obsreg().histogram(
@@ -2049,14 +2053,17 @@ class PaxosManager:
             # opt-in exact device step: costs the pipeline overlap
             self._sync_device()
             pc.mark(_BLOCKING_PHASE)
+        # the outbox starts for the host now, behind this tick's work;
+        # completion waits for the copy alone, not for later ticks' kernels
+        packed = self._outcopy.start(packed)
         pc.mark("dispatch")
         if self.wal is not None:
             self.wal.log_inbox(self.tick_num, self._inbox_alive)
         pc.mark("wal_fsync")
         self.tick_num += 1
         if self.cfg.paxos.pipeline_ticks:
-            # deferred unpack: the device->host copy of tick N happens at
-            # tick N+1's completion
+            # deferred unpack: tick N's outbox, copied since its dispatch,
+            # is read at tick N+1's completion
             if self._pending_out is not None:
                 prev = self._pending_out
                 self._pending_out = None  # before completing: _complete_tick
@@ -2083,22 +2090,22 @@ class PaxosManager:
     def _complete_tick(self, packed, placed: list, bulk_placed=None,
                        frontier=None, lease_pack=None, health_pack=None,
                        tick=None):
-        """Consume one tick's outbox (the device->host copy is the sync
-        point): adopt the lease and health packs, requeue rejected intake,
-        execute the ordered decision stream, release callbacks, periodic
-        GC.  Mixed planes hand a (log, register) pair of buffers, merged
-        into the composite row space.  ``tick``: the phase clock's number
-        of the tick that dispatched the outbox (None: the current one)."""
+        """Consume one tick's outbox (waiting for its copy to the host,
+        started at dispatch, is the sync point): adopt the lease and health
+        packs, requeue rejected intake, execute the ordered decision
+        stream, release callbacks, periodic GC.  ``packed`` is the
+        :meth:`OutboxCopier.start` handle; mixed planes copy a (log,
+        register) pair of buffers, merged into the composite row space.
+        ``tick``: the phase clock's number of the tick that dispatched the
+        outbox (None: the current one)."""
         pc = self._pc
         # re-arm without observing: drain_pipeline completes a deferred tick
         # outside tick(), and cross-call idle time must not land in "tally"
         pc.touch(tick)
-        dt = self._dt
-        t_copy = dt.start()
-        packed = (tuple(_host(p) for p in packed)
-                  if isinstance(packed, tuple) else _host(packed))
-        dt.stop("copy", t_copy)
-        dt.poll()
+        # the host buffers are written again two ticks on: the outbox this
+        # returns owns its arrays (the mixed planes' merge copies anyway)
+        packed = self._outcopy.land(packed)
+        self._dt.poll()
         if lease_pack is not None:
             self._adopt_lease_pack(lease_pack)
         if health_pack is not None:
@@ -2113,11 +2120,13 @@ class PaxosManager:
                     self.G)
             else:
                 out = unpack_compact(packed, self.R, self.G,
-                                     self._exec_budget, self._lag_budget)
+                                     self._exec_budget, self._lag_budget,
+                                     own=True)
             e_resp = e_miss = None
             if self._device_app:
                 # the extras are sliced through the shared layout, which
-                # fused_compact packs them by
+                # fused_compact packs them by, and read before the host
+                # buffer is written again
                 e_resp, e_miss = CompactLayout(
                     self.R, self.G, self._exec_budget,
                     self._lag_budget).kv_extras(packed)
@@ -2131,7 +2140,8 @@ class PaxosManager:
                     unpack_outbox(packed[0], self.R, self.P, self.W, self.G),
                     unpack_outbox(packed[1], self.R, self.P, 1, self.G_reg))
             else:
-                out = unpack_outbox(packed, self.R, self.P, self.W, self.G)
+                out = unpack_outbox(packed.copy(), self.R, self.P, self.W,
+                                    self.G)
             pc.mark("tally")
             self._process_outbox(out, placed, bulk_placed)
         pc.mark("execute")
