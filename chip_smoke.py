@@ -144,7 +144,7 @@ the kernels are built for sm_90a).  It
    and load.  ``mesh-1M`` runs tick-1M's shape (R=3, W=8, P=4, G=2^20,
    bench.py's load) through the sharded tick on ``make_mesh([cuda] *
    8)``: eight group shards of 2^17, all on the one card, 8 x (5 + 1)
-   launches a tick, every flat buffer and the final state equal to an
+   launches a tick, every joined outbox and the final state equal to an
    unsharded run of the same inputs on the card; ``mesh-128k-r4`` the
    same at R=4 with 2 replica x 4 group shards (``tests/test_sharding.py``'s
    layout) at G=2^17.  ``mesh-placement-128k`` runs a ``KVApp`` manager on
@@ -4787,9 +4787,10 @@ def _mesh_run(torch, pg, pt, st, tick_fn, R, W, P, G, ticks, dev,
 
 
 def mesh_case(torch, pg, dev, R, W, P, G, rs, ticks):
-    """The sharded tick on ``make_mesh([dev] * 8, rs)``: its launches (8
-    shards x (5 + 1) a tick), its state and every flat buffer against an
-    unsharded run of the same inputs on the card."""
+    """The sharded tick on ``make_mesh([dev] * 8, rs)`` over resident
+    blocks: its launches (8 shards x (5 + 1) a tick), its state and every
+    tick's joined compacted outbox against an unsharded run of the same
+    inputs on the card."""
     from gigapaxos_tpu_torch.ops import tick as pt
     from gigapaxos_tpu_torch.parallel import mesh as pm
     from gigapaxos_tpu_torch.parallel import shard_tick as stk
@@ -4798,10 +4799,22 @@ def mesh_case(torch, pg, dev, R, W, P, G, rs, ticks):
     E, Lb = R * G + 4096, 1024
     mesh = pm.make_mesh([dev] * 8, replica_shards=rs)
     stk.validate_mesh_for(mesh, R, G)
-    shard = stk.make_shardmap_tick_compact(mesh, -1, E, Lb)
+    res_tick = stk.make_resident_tick(mesh, -1, E, Lb)
+    held = {}
+
+    def shard(s, inbox):
+        # the blocks stay resident from the first tick on; the global
+        # view ``s`` is cut once
+        if "blocks" not in held:
+            held["blocks"] = pm.shard_state(s, mesh)
+        held["blocks"], flats, _ = res_tick(held["blocks"],
+                                            pm.shard_inbox(inbox, mesh))
+        return s, flats
+
     pg.reset_launches()
-    s_sh, f_sh, ms_sh = _mesh_run(torch, pg, pt, st, shard, R, W, P, G,
-                                  ticks, dev, E, Lb)
+    _, f_sh, ms_sh = _mesh_run(torch, pg, pt, st, shard, R, W, P, G,
+                               ticks, dev, E, Lb)
+    s_sh = pm.gather_state(held["blocks"], mesh, dev)
     n = ticks + W
     gs = mesh.groups_shards
     launches = None
@@ -4813,13 +4826,17 @@ def mesh_case(torch, pg, dev, R, W, P, G, rs, ticks):
         torch, pg, pt, st,
         lambda s, ib: pt.paxos_tick_compact(s, ib, -1, E, Lb),
         R, W, P, G, ticks, dev, E, Lb)
-    for t, (a, b) in enumerate(zip(f_sh, f_un)):
-        check(torch.equal(a, b), f"mesh R={R} rs={rs}: tick {t}'s flat "
-              "buffer differs from the unsharded run")
+    joined = [stk.join_compact({k: f.cpu().numpy() for k, f in a.items()},
+                               mesh, R, W, G, E, Lb) for a in f_sh]
+    for t, (a, b) in enumerate(zip(joined, f_un)):
+        want = pt.unpack_compact(b.cpu().numpy(), R, G, E, Lb)
+        check(all(np.array_equal(x, y) for x, y in zip(a, want)),
+              f"mesh R={R} rs={rs}: tick {t}'s joined outbox differs from "
+              "the unsharded run's")
     for name, a, b in zip(st.PaxosState._fields, s_sh, s_un):
         check(torch.equal(a, b), f"mesh R={R} rs={rs}: state.{name} "
               "differs from the unsharded run")
-    co = pt.unpack_compact(f_sh[ticks - 1].cpu().numpy(), R, G, E, Lb)
+    co = joined[ticks - 1]
     check(co.n_exec > 0, f"mesh R={R} rs={rs}: nothing executed")
     return {
         "R": R, "W": W, "P": P, "G": G, "replica_shards": rs,

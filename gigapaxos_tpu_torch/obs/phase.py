@@ -41,7 +41,7 @@ import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
-from .metrics import METRICS_ENABLED, Histogram, Registry, registry
+from .metrics import METRICS_ENABLED, Counter, Histogram, Registry, registry
 
 # driver name -> the phases its tick marks
 DRIVER_PHASES: Dict[str, Tuple[str, ...]] = {
@@ -90,8 +90,15 @@ def _profiling() -> bool:
 
 
 def _totals() -> Dict[tuple, Tuple[int, float]]:
-    return {(h.name, h.labels): (h.count, h.total)
-            for h in registry().metrics() if isinstance(h, Histogram)}
+    """``(count, total)`` of every histogram, ``(value, value)`` of every
+    counter."""
+    out = {}
+    for h in registry().metrics():
+        if isinstance(h, Histogram):
+            out[(h.name, h.labels)] = (h.count, h.total)
+        elif isinstance(h, Counter):
+            out[(h.name, h.labels)] = (h.value, float(h.value))
+    return out
 
 
 def _set_recording(on: bool) -> None:
@@ -132,8 +139,8 @@ def take_spans() -> List[Tuple[str, int, int, int]]:
 
 def session_totals() -> Dict[tuple, Tuple[int, float]]:
     """``(count, total)`` each histogram of the default registry gained in
-    the last stretch of span recording, keyed by ``(name, labels)``; while
-    recording, the stretch so far."""
+    the last stretch of span recording, keyed by ``(name, labels)`` (a
+    counter's gain in both places); while recording, the stretch so far."""
     if _ON:
         base = _BASE
         return {k: (c - base.get(k, (0, 0.0))[0],
@@ -297,12 +304,12 @@ class DeviceTimers:
     PENDING_MAX = 64
 
     def __init__(self, driver: str, plane: str, parts, event: Callable,
-                 stream, reg: Optional[Registry] = None):
+                 stream, reg: Optional[Registry] = None, **labels):
         reg = registry() if reg is None else reg
         self._h = {p: reg.histogram(
             "tick_device_seconds",
             help="device time of a part of a tick (CUDA events)",
-            driver=driver, plane=plane, part=p) for p in parts}
+            driver=driver, plane=plane, part=p, **labels) for p in parts}
         self._event = event
         self._stream = stream
         self._free: list = []
@@ -348,10 +355,12 @@ class _NullDeviceTimers:
 _NULL_TIMERS = _NullDeviceTimers()
 
 
-def device_timers(driver: str, plane: str, parts, device, stream=None):
+def device_timers(driver: str, plane: str, parts, device, stream=None,
+                  **labels):
     """:class:`DeviceTimers` on ``stream``, by default a CUDA ``device``'s
     current stream (the one its ticks then run on); the no-op twin on any
-    other device and under ``GPTPU_METRICS=0``."""
+    other device and under ``GPTPU_METRICS=0``.  ``labels`` (a mesh
+    shard's ``shard``) join the histograms' labels."""
     if not METRICS_ENABLED or getattr(device, "type", None) != "cuda":
         return _NULL_TIMERS
     import torch
@@ -360,4 +369,15 @@ def device_timers(driver: str, plane: str, parts, device, stream=None):
         driver, plane, parts,
         event=lambda: torch.cuda.Event(enable_timing=True),
         stream=(torch.cuda.current_stream(device) if stream is None
-                else stream))
+                else stream), **labels)
+
+
+def mesh_transfer_counter(kind: str):
+    """``mesh_transfer_bytes_total{kind}``: bytes a mesh program sends
+    from one shard's device to another's, counted where it sends them
+    (``rank``: the exec budget's rank blocks; ``replica``: the replica
+    axis's all-gathers; ``state``: whole-state gathers and scatters of the
+    rare paths)."""
+    return registry().counter(
+        "mesh_transfer_bytes_total",
+        help="bytes sent between a mesh's shards", kind=kind)

@@ -1162,7 +1162,12 @@ def _scatter_into(dst, vals, budget: int) -> torch.Tensor:
 
 
 def _compact_outbox_impl(out: TickOutbox, exec_budget: int,
-                         lag_budget: int) -> torch.Tensor:
+                         lag_budget: int, row_counts: bool = False
+                         ) -> torch.Tensor:
+    """The outbox compacted into one flat buffer (:class:`CompactLayout`).
+    ``row_counts`` appends the executions of each (r, j) row, ``[R, W]``,
+    which a mesh shard's host join needs to put its executions at their
+    global rank (``parallel.shard_tick.join_compact``)."""
     R, W, G = out.exec_req.shape
     P = out.intake_taken.shape[1]
     E, Lb = exec_budget, lag_budget
@@ -1197,6 +1202,8 @@ def _compact_outbox_impl(out: TickOutbox, exec_budget: int,
     for v in [rep2, row2, out.donor, out.donor_exec, out.donor_status,
               out.exec_base + out.exec_count]:
         parts.append(_scatter_into(ldst, v.reshape(-1), Lb))
+    if row_counts:
+        parts.append(_i32sum(mask, 2).reshape(-1))
     return torch.cat(parts)
 
 
@@ -1231,7 +1238,8 @@ class CompactLayout:
     Section order: header[3] | taken_bits[R*G] | e_rid[E] | e_meta[E] |
     e_slot[E] | e_row[E] | l_rep[Lb] | l_row[Lb] | l_donor[Lb] |
     l_dexec[Lb] | l_dstat[Lb] | l_lexec[Lb] | app extras (device app:
-    e_resp[E] | e_miss[E])."""
+    e_resp[E] | e_miss[E]; a mesh shard: the executions of each (r, j)
+    row, counts[R*W])."""
 
     HEADER = 3  # n_exec, decided_total, lag_n
 
@@ -1246,6 +1254,7 @@ class CompactLayout:
         self.base = self.o_lag + self.LAG_COLS * self.Lb  # app extras
         self.o_resp = self.base                 # device app: KV responses
         self.o_miss = self.base + self.E        # device app: descriptor miss
+        self.o_counts = self.base               # a mesh shard: row counts
         self.total_plain = self.base
         self.total_device = self.base + 2 * self.E
 
@@ -1441,10 +1450,12 @@ def run_back(state, inbox: TickInbox, m: TickMid, exec_budget: int = 0,
     return PaxosState(*res[0]), TickOutbox(*res[1])
 
 
-def run_compact(out: TickOutbox, exec_budget: int, lag_budget: int):
+def run_compact(out: TickOutbox, exec_budget: int, lag_budget: int,
+                row_counts: bool = False):
     """One scripted :func:`_compact_outbox_impl`."""
     with torch.jit.optimized_execution(False):
-        return scripted(_compact_outbox_impl)(out, exec_budget, lag_budget)
+        return scripted(_compact_outbox_impl)(out, exec_budget, lag_budget,
+                                              row_counts)
 
 
 def run_dispatch(state, rstate, lease, rlease, health, rhealth,

@@ -13,17 +13,28 @@ devices, repeats allowed (eight shards on one card, or ``n`` x ``cpu``
 standing in for ``n`` devices).  Shard ``(ri, gi)`` holds the
 ``[R/rs, (W,) G/gs]`` block of every replica-led field (rows
 ``ri*R/rs ...``, columns ``gi*G/gs ...``) and the ``[G/gs]`` block of the
-``[G]`` fields; ``alive`` is replicated.  :func:`shard_state` /
-:func:`shard_inbox` cut a global-view state into those blocks on their
-devices, :func:`gather_state` / :func:`gather_outbox` put them back.
+``[G]`` fields; ``alive`` is replicated.
+
+A :class:`ResidentState` keeps a state as those blocks, each on its
+shard's device, for its whole life: the sharded tick
+(``parallel/shard_tick.py``) reads and replaces the blocks where they
+lie.  :func:`shard_state` / :func:`shard_inbox` cut a global-view state
+or inbox into blocks, :func:`gather_state` / :func:`gather_outbox` put
+them back; they serve the rare paths (a snapshot's restore, a journal
+record's inbox in recovery, ``PaxosManager.gather_state``, a twin's
+comparison) and the global-view form of the tick, never the live
+resident tick.
 """
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.tick import TickInbox, TickOutbox
-from ..paxos.state import PaxosState
+from ..obs.phase import mesh_transfer_counter
+from ..paxos.state import PaxosState, init_state, to_host
 
 REPLICA_AXIS = "replica"
 GROUPS_AXIS = "groups"
@@ -162,3 +173,105 @@ def gather_outbox(blocks: Dict[tuple, TickOutbox], mesh: Mesh,
                   device) -> TickOutbox:
     """The global view of the shards' outboxes, on ``device``."""
     return _join(blocks, _OUTBOX_SPECS, mesh, device)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class ResidentState:
+    """A :class:`PaxosState` held as its shards' blocks, each on its
+    shard's device (``blocks``: ``{(ri, gi): PaxosState}``).  Rows of the
+    group axis are global: shard column ``gi`` owns rows
+    ``[gi*G/gs, (gi+1)*G/gs)``.  Whole-state gathers and scatters count
+    the bytes of every block but the first shard's (the home of the
+    global view) into ``mesh_transfer_bytes_total{kind="state"}``."""
+
+    def __init__(self, mesh: Mesh, blocks: Dict[tuple, PaxosState]):
+        self.mesh = mesh
+        self.blocks = blocks
+
+    @classmethod
+    def fresh(cls, mesh: Mesh, R: int, G: int, W: int) -> "ResidentState":
+        """Every row FREE, each block made on its own device (a fresh
+        state is the same in every column, so no cut is needed)."""
+        rl, gl = R // mesh.replica_shards, G // mesh.groups_shards
+        return cls(mesh, {k: init_state(rl, gl, W, mesh.device_at(*k))
+                          for k in mesh.shards()})
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.blocks[(0, 0)].exec_slot.shape[1]
+
+    def _count(self) -> None:
+        """The bytes a whole-state gather or scatter moves."""
+        n = sum(_nbytes(t) for k, b in self.blocks.items()
+                if k != (0, 0) for t in b)
+        mesh_transfer_counter("state").inc(n)
+
+    def gather(self, device) -> PaxosState:
+        """The global view, on ``device`` (a copy)."""
+        self._count()
+        return gather_state(self.blocks, self.mesh, device)
+
+    def assign(self, state: PaxosState) -> None:
+        """Replace every block by its cut of the global view ``state``."""
+        self.blocks = shard_state(state, self.mesh)
+        self._count()
+
+    def field_host(self, name: str) -> np.ndarray:
+        """One field's global view as a host array."""
+        rs, gs = self.mesh.replica_shards, self.mesh.groups_shards
+        spec = _STATE_SPECS[name]
+        rows = range(rs) if spec != "g" else range(1)
+        cols = [np.concatenate([to_host(getattr(self.blocks[(ri, gi)], name))
+                                for ri in rows], axis=0)
+                for gi in range(gs)]
+        return np.concatenate(cols, axis=-1)
+
+    def owner(self, row: int) -> tuple:
+        """``(gi, local row)`` of a global row."""
+        return divmod(int(row), self.rows_per_shard)
+
+    def split_rows(self, rows) -> List[tuple]:
+        """``(gi, positions in rows, local rows)`` for each shard column
+        owning some of ``rows``."""
+        rows = np.asarray(rows, np.int64)
+        gi = rows // self.rows_per_shard
+        out = []
+        for g in np.unique(gi).tolist():
+            sel = np.nonzero(gi == g)[0]
+            out.append((g, sel, rows[sel] - g * self.rows_per_shard))
+        return out
+
+    @contextlib.contextmanager
+    def column(self, gi: int, write: bool = True):
+        """Shard column ``gi`` as one full-R state: with one replica shard
+        the resident block itself (written in place); with several, a
+        copy on the column's first device, whose fields are written back
+        to the replica blocks on exit when ``write``."""
+        rs = self.mesh.replica_shards
+        if rs == 1:
+            yield self.blocks[(0, gi)]
+            return
+        dev = self.mesh.device_at(0, gi)
+        parts = [self.blocks[(ri, gi)] for ri in range(rs)]
+        moved = sum(_nbytes(t) for b in parts[1:] for t in b)
+        col = PaxosState(*(
+            torch.cat([getattr(b, f).to(dev) for b in parts], dim=0)
+            if _STATE_SPECS[f] != "g" else getattr(parts[0], f)
+            for f in PaxosState._fields))
+        mesh_transfer_counter("state").inc(moved)
+        yield col
+        if not write:
+            return
+        rl = col.exec_slot.shape[0] // rs
+        for ri, b in enumerate(parts):
+            for f in PaxosState._fields:
+                src = getattr(col, f)
+                if _STATE_SPECS[f] != "g":
+                    src = src[ri * rl:(ri + 1) * rl]
+                dst = getattr(b, f)
+                if dst.data_ptr() != src.data_ptr():
+                    dst.copy_(src)
+        mesh_transfer_counter("state").inc(moved)

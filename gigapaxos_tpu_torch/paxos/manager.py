@@ -30,7 +30,9 @@ It owns:
 
 * the sharded data plane (``mesh_devices``, ``parallel/shard_tick.py``):
   one tick body a shard of a (replica, groups) mesh, bit-identical to the
-  single-device tick;
+  single-device tick; each shard's state block lives on its own device
+  from birth (``parallel.mesh.ResidentState``), each shard's inbox block
+  goes to its device and its compacted outbox to the host on its own;
 * the placement demand plane (``placement.enabled``, ``placement/``):
   per-group demand counters folded on the device (inside the scripted
   compact tick, or after the mesh's shards) or on the host, read by the
@@ -44,6 +46,7 @@ B elects through it).
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import os
 import struct
@@ -69,12 +72,12 @@ from ..ops.tick import (LP_ASN, LP_EPOCH, LP_HOLDER, LP_UNTIL, LP_WAIT,
                         TickInbox, frontier_rows, health_clear_rows,
                         init_health, init_lease, lease_clear_rows,
                         merge_compact_outbox,
-                        merge_health, merge_outbox, pack_outbox_impl,
+                        merge_health, merge_outbox,
                         paxos_tick_compact_demand, paxos_tick_health,
                         sweep_frontier, unpack_compact, unpack_health,
                         unpack_outbox)
 from ..parallel import shard_tick as _stk
-from ..parallel.mesh import GROUPS_AXIS, make_mesh
+from ..parallel.mesh import GROUPS_AXIS, ResidentState, make_mesh
 from ..types import NO_REQUEST
 from ..utils.diskmap import DiskMap
 from ..utils.intmap import RowAllocator
@@ -118,6 +121,22 @@ def _mesh_for(p, device: torch.device):
             f"mesh_devices={n} but only {len(devs)} devices visible"
         )
     return make_mesh(devs[:n], replica_shards=p.mesh_replica_shards)
+
+
+def _pad_rows(rows: np.ndarray) -> np.ndarray:
+    """``rows`` as int32, zero-padded to a power-of-two bucket (>= 16)."""
+    padded = np.zeros(max(16, 1 << int(len(rows) - 1).bit_length()),
+                      np.int32)
+    padded[:len(rows)] = rows
+    return padded
+
+
+def _frontier_np(x, n: int) -> np.ndarray:
+    """The first ``n`` values of a gathered frontier column on the host:
+    one device tensor, or a mesh's ``(count, tensor)`` list."""
+    if isinstance(x, list):
+        return np.concatenate([t.cpu().numpy()[:c] for c, t in x])
+    return x.cpu().numpy()[:n]
 
 
 def _refuse_device_app_combinations(cfg: GigapaxosTpuConfig) -> None:
@@ -181,22 +200,21 @@ class PaxosManager:
         # bit), so every row-keyed host structure is sized G_total
         self.G_reg = cfg.paxos.register_groups
         self.G_total = self.G + self.G_reg
-        self.state = st.init_state(self.R, self.G, self.W, self.device)
-        self.rstate = (st.init_state(self.R, self.G_reg, 1, self.device)
-                       if self.G_reg else None)
         self.rows = RowAllocator(self.G_total, split=self.G)
         self.apps = apps
         # ---- sharded data plane (parallel/shard_tick) ----
         # mesh_devices > 0 (or -1 = all): the tick runs once per shard of a
         # (replica, groups) mesh, the hand kernels on each shard's block,
-        # the quorum exchange an explicit replica-axis all-gather.  The
-        # state stays global-view on self.device between ticks and the
-        # results equal the single-device path bit for bit, so everything
-        # downstream (WAL, replay, laggard repair, compaction layout) is
-        # unchanged.
+        # the quorum exchange an explicit replica-axis all-gather.  Each
+        # shard's block of the state lives on its device from birth
+        # (self._res); the rare paths reach a row through its owning block
+        # (_owning, _row_blocks), ``self.state`` is None and
+        # gather_state() copies the whole state out.  Results equal the
+        # single-device path bit for bit, so everything downstream (WAL,
+        # replay, laggard repair, compaction layout) is unchanged.
         self.mesh = None
+        self._res: Optional[ResidentState] = None
         self._mesh_tick = None
-        self._mesh_tick_compact = None
         if cfg.paxos.mesh_devices or mesh is not None:
             if self._device_app:
                 raise ValueError(
@@ -210,15 +228,21 @@ class PaxosManager:
             self.mesh = (mesh if mesh is not None
                          else _mesh_for(cfg.paxos, self.device))
             _stk.validate_mesh_for(self.mesh, self.R, self.G)
-            if cfg.paxos.compact_outbox:
-                self._mesh_tick_compact = _stk.make_shardmap_tick_compact(
-                    self.mesh, -1, self._exec_budget_of(cfg),
-                    max(64, cfg.paxos.lag_budget),
-                    demand_decay=(cfg.placement.ewma_decay
-                                  if cfg.placement.enabled else None),
-                )
-            else:
-                self._mesh_tick = _stk.make_shardmap_tick(self.mesh, -1)
+            compact = bool(cfg.paxos.compact_outbox)
+            self._mesh_tick = _stk.make_resident_tick(
+                self.mesh, -1, self._exec_budget_of(cfg) if compact else 0,
+                max(64, cfg.paxos.lag_budget) if compact else 0,
+                demand_decay=(cfg.placement.ewma_decay
+                              if cfg.placement.enabled else None),
+                pack=not compact)
+            self._res = ResidentState.fresh(self.mesh, self.R, self.G,
+                                            self.W)
+        #: the log plane's state on one device; None on a mesh, whose
+        #: blocks are ``self._res`` (see :meth:`gather_state`)
+        self.state = (None if self._res is not None else
+                      st.init_state(self.R, self.G, self.W, self.device))
+        self.rstate = (st.init_state(self.R, self.G_reg, 1, self.device)
+                       if self.G_reg else None)
         # ---- placement plane (placement/): advisory demand counters ----
         # Not journaled and not in snapshots: a recovered node restarts
         # with cold counters and waits out the rebalancer's min-interval
@@ -236,10 +260,14 @@ class PaxosManager:
                 decay=cfg.placement.ewma_decay,
                 sample_every_ticks=cfg.placement.sample_every_ticks,
             )
-            if self._mesh_tick_compact is not None:
-                # device fold after the shards (make_shardmap_tick_compact)
-                self._demand_dev = _stk.init_demand(self.mesh, self.G,
-                                                    self.device)
+            if self._res is not None and cfg.paxos.compact_outbox:
+                # each shard column folds its own block in its tick
+                # (shard_tick_body), one [G/gs] block a column
+                gl = self._res.rows_per_shard
+                self._demand_dev = [
+                    torch.zeros(gl, dtype=torch.float32,
+                                device=self.mesh.device_at(0, gi))
+                    for gi in range(gs)]
             elif cfg.paxos.compact_outbox and not self._device_app \
                     and not self.G_reg and not cfg.paxos.read_leases \
                     and not cfg.paxos.group_health:
@@ -479,6 +507,32 @@ class PaxosManager:
         #: host buffers (pinned, on a copy stream, for a CUDA outbox) and
         #: timed there as part "copy"
         self._outcopy = OutboxCopier("modea", spill_ns)
+        #: a mesh: per shard (labelled by its index in ``mesh.shards()``)
+        #: the timers of its inbox upload, its body ("tick") and its
+        #: exchanges ("exchange"), and its outbox's copier
+        self._dts: Dict[tuple, object] = {}
+        self._outcopies: Dict[tuple, OutboxCopier] = {}
+        #: a CUDA mesh's inbox staging is pinned: each shard's block goes
+        #: to its card without blocking the host, and the next build waits
+        #: for these events (the uploads' ends) before writing the staging
+        self._staging_pinned = None
+        self._uploaded: list = []
+        if self.mesh is not None:
+            for i, k in enumerate(self.mesh.shards()):
+                dev = self.mesh.device_at(*k)
+                self._dts[k] = _device_timers(
+                    "modea", spill_ns, ("upload", "tick", "exchange"), dev,
+                    shard=str(i))
+                self._outcopies[k] = OutboxCopier("modea", spill_ns,
+                                                  shard=str(i))
+            if any(d.type == "cuda" for d in self.mesh.devices):
+                self._staging_pinned = (
+                    torch.zeros(self._in_req.shape, dtype=torch.int32,
+                                pin_memory=True),
+                    torch.zeros(self._in_stp.shape, dtype=torch.bool,
+                                pin_memory=True))
+                self._in_req = self._staging_pinned[0].numpy()
+                self._in_stp = self._staging_pinned[1].numpy()
         #: a bulk request's wait from admission to placement ("queue") and
         #: from placement to the release of its response ("order")
         self._wait_h = {stage: _obsreg().histogram(
@@ -501,34 +555,80 @@ class PaxosManager:
     def is_register_row(self, row: int) -> bool:
         return row >= self.G
 
-    def _plane_state(self, row: int):
-        """(plane_state, plane_row) for a composite row."""
+    def gather_state(self) -> st.PaxosState:
+        """The log plane's whole state: :attr:`state` on one device.  On a
+        mesh, where :attr:`state` is None, a copy gathered from the shards'
+        blocks onto ``device`` (its bytes counted as
+        ``mesh_transfer_bytes_total{kind="state"}``); writes to it reach
+        no shard."""
+        if self._res is None:
+            return self.state
+        return self._res.gather(self.device)
+
+    def load_state(self, state: st.PaxosState) -> None:
+        """Replace the log plane's whole state (a snapshot's restore): on a
+        mesh, each shard's block by its cut of ``state``."""
+        if self._res is None:
+            self.state = state
+        else:
+            self._res.assign(state)
+
+    @contextlib.contextmanager
+    def _owning(self, row: int, write: bool = True):
+        """``(state, row)`` of the plane, and on a mesh the block, that
+        holds composite ``row``; writes in place land in it (with replica
+        shards, written back on exit unless ``write`` is False)."""
         if row >= self.G:
-            return self.rstate, row - self.G
-        return self.state, row
+            yield self.rstate, row - self.G
+        elif self._res is None:
+            yield self.state, row
+        else:
+            gi, prow = self._res.owner(row)
+            with self._res.column(gi, write) as col:
+                yield col, prow
+
+    def _row_blocks(self, rows):
+        """``(state, rows in it, positions in rows)`` for each log-plane
+        block holding some of ``rows``: the whole plane on one device, each
+        owning shard column on a mesh (writes land as with
+        :meth:`_owning`)."""
+        if self._res is None:
+            yield self.state, rows, slice(None)
+            return
+        for gi, sel, prows in self._res.split_rows(rows):
+            with self._res.column(gi) as col:
+                yield col, prows, sel
+
+    def _field_np(self, name: str) -> np.ndarray:
+        """One log-plane field's global view on the host."""
+        if self._res is None:
+            return st.to_host(getattr(self.state, name))
+        return self._res.field_host(name)
 
     def _dev_exec_np(self) -> np.ndarray:
         """Composite [R, G_total] device exec watermark on the host."""
-        ex = st.to_host(self.state.exec_slot)
+        ex = self._field_np("exec_slot")
         if self.rstate is None:
             return ex
         return np.hstack([ex, st.to_host(self.rstate.exec_slot)])
 
     def _dev_exec_col(self, row: int) -> np.ndarray:
-        pst, prow = self._plane_state(row)
-        return st.to_host(pst.exec_slot[:, prow])
+        with self._owning(row, write=False) as (pst, prow):
+            return st.to_host(pst.exec_slot[:, prow])
 
     def _set_exec_status(self, r: int, row: int, exec_slot: int,
                          status: int) -> None:
         """Point-write a replica's exec watermark + status on the owning
         plane (checkpoint transfer apply), in place."""
-        pst, prow = self._plane_state(row)
-        pst.exec_slot[r, prow] = exec_slot
-        pst.status[r, prow] = status
+        with self._owning(row) as (pst, prow):
+            pst.exec_slot[r, prow] = exec_slot
+            pst.status[r, prow] = status
 
     def _sync_device(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devs = self.mesh.devices if self.mesh is not None else [self.device]
+        for d in dict.fromkeys(devs):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     # ------------------------------------------------------------ lease plane
     # The device fold owns grant/renew/expiry and the write fence; the host
@@ -705,12 +805,13 @@ class PaxosManager:
                 row = self.rows.row(name)
         if row is None:
             return None
-        pst, prow = self._plane_state(row)
         register = row >= self.G
-        col = {f: st.to_host(getattr(pst, f)[:, prow])
-               for f in ("member", "bal_num", "bal_coord", "exec_slot",
-                         "next_slot", "status", "coord_active",
-                         "coord_preparing")}
+        with self._owning(row, write=False) as (pst, prow):
+            col = {f: st.to_host(getattr(pst, f)[:, prow])
+                   for f in ("member", "bal_num", "bal_coord", "exec_slot",
+                             "next_slot", "status", "coord_active",
+                             "coord_preparing")}
+            epoch = int(pst.epoch[prow])
         members = [int(r) for r in np.nonzero(col["member"])[0]]
         replicas = {
             int(r): {
@@ -728,7 +829,7 @@ class PaxosManager:
             "name": name,
             "row": int(row),
             "mode": "register" if register else "log",
-            "epoch": int(pst.epoch[prow]),
+            "epoch": epoch,
             "members": members,
             "replicas": replicas,
             "stopped": row in self._stopped_rows,
@@ -780,9 +881,9 @@ class PaxosManager:
         mask = np.zeros((1, self.R), bool)
         for m in members:
             mask[0, m] = True
-        pst, prow = self._plane_state(row)
-        st.create_groups(pst, np.array([prow]), mask,
-                         np.array([epoch], np.int32))
+        with self._owning(row) as (pst, prow):
+            st.create_groups(pst, np.array([prow]), mask,
+                             np.array([epoch], np.int32))
         self._set_member_row(row, mask[0], name)
         self._stopped_rows.discard(row)
         self._stopped_np[row] = False
@@ -812,9 +913,9 @@ class PaxosManager:
         mask = np.zeros((1, self.R), bool)
         for m in members:
             mask[0, m] = True
-        pst, prow = self._plane_state(row)
-        st.create_groups(pst, np.array([prow]), mask,
-                         np.array([epoch], np.int32))
+        with self._owning(row) as (pst, prow):
+            st.create_groups(pst, np.array([prow]), mask,
+                             np.array([epoch], np.int32))
         self._set_member_row(row, mask[0], name)
         self._stopped_rows.discard(row)
         self._stopped_np[row] = False
@@ -837,18 +938,19 @@ class PaxosManager:
             raise ValueError(f"member slots out of range [0, {self.R}): "
                              f"{members}")
         with self.lock:
-            fresh = list(dict.fromkeys(  # order-preserving dedup
-                n for n in names
-                if n not in self.rows and n not in self._paused
-            ))
+            fresh = list(dict.fromkeys(names))  # order-preserving dedup
+            if len(self.rows) or len(self._paused):
+                fresh = [n for n in fresh
+                         if n not in self.rows and n not in self._paused]
             take = fresh[:self.rows.free_count()]
             rest = fresh[len(take):]
             if take:
-                rows = np.array([self.rows.alloc(n) for n in take], np.int32)
+                rows = np.array(self.rows.alloc_many(take), np.int32)
                 mask = np.zeros((len(take), self.R), bool)
                 mask[:, members] = True
-                st.create_groups(self.state, rows, mask,
-                                 np.full(len(take), epoch, np.int32))
+                for pst, prows, sel in self._row_blocks(rows):
+                    st.create_groups(pst, prows, mask[sel],
+                                     np.full(len(prows), epoch, np.int32))
                 self._member_np[:, rows] = mask.T
                 self._n_members_np[rows] = mask.sum(axis=1)
                 bits = int(np.bitwise_or.reduce(
@@ -858,7 +960,8 @@ class PaxosManager:
                 self._row_name_np[rows] = take
                 self._member_ord = None
                 self._stopped_np[rows] = False
-                self._stopped_rows.difference_update(int(r) for r in rows)
+                if self._stopped_rows:
+                    self._stopped_rows.difference_update(rows.tolist())
                 self._last_active[rows] = self.tick_num
                 if self.wal is not None:
                     # one fsync for the whole batch, not one per name
@@ -901,8 +1004,8 @@ class PaxosManager:
         # a pipelined pending outbox may still reference this row under its
         # OLD name<->row mapping; complete it before the row is freed
         self.drain_pipeline()
-        pst, prow = self._plane_state(row)
-        st.free_groups(pst, np.array([prow]))
+        with self._owning(row) as (pst, prow):
+            st.free_groups(pst, np.array([prow]))
         self._kv_clear_rows([row])
         self._clear_member_rows([row])
         self._lease_drop_rows([row])
@@ -1024,8 +1127,8 @@ class PaxosManager:
         self._drain_staged()
         self.drain_pipeline()
         idle_after = 0 if ignore_idle else self.cfg.paxos.deactivation_ticks
-        exec_slot = st.to_host(self.state.exec_slot)
-        next_slot = st.to_host(self.state.next_slot)
+        exec_slot = self._field_np("exec_slot")
+        next_slot = self._field_np("next_slot")
         member = self._member_np
         # rows referenced by live/queued bulk requests are not pausable
         bulk_ref = None
@@ -1088,7 +1191,8 @@ class PaxosManager:
         rows_to_free = []
         for name in names:
             row = self.rows.row(name)
-            hri = st.extract_hri(self.state, row)
+            with self._owning(row, write=False) as (pst, prow):
+                hri = st.extract_hri(pst, prow)
             hri["stopped"] = row in self._stopped_rows
             if self.kv is not None:
                 # device-app state is keyed by row: it rides the spilled
@@ -1097,7 +1201,8 @@ class PaxosManager:
                 hri["dkv_val"] = st.to_host(self.kv.val[:, row])
             self._paused[name] = hri
             rows_to_free.append(row)
-        st.free_groups(self.state, np.array(rows_to_free))
+        for pst, prows, _ in self._row_blocks(np.array(rows_to_free)):
+            st.free_groups(pst, prows)
         self._kv_clear_rows(rows_to_free)
         self._clear_member_rows(rows_to_free)
         self._lease_drop_rows(rows_to_free)
@@ -1119,10 +1224,11 @@ class PaxosManager:
         del self._paused[name]
         # reset the row to a clean slate, then restore the scalar columns
         mask = hri["member"].reshape(1, -1)
-        st.create_groups(self.state, np.array([row]), mask,
-                         np.array([hri["epoch"]], np.int32))
+        with self._owning(row) as (pst, prow):
+            st.create_groups(pst, np.array([prow]), mask,
+                             np.array([hri["epoch"]], np.int32))
+            st.hot_restore(pst, prow, hri)
         self._set_member_row(row, mask[0], name)
-        st.hot_restore(self.state, row, hri)
         # pause holds drained state (host == device), so the restored
         # device watermark is also the host-applied one for this row
         self._host_exec[:, row] = np.asarray(hri["exec_slot"], np.int32)
@@ -1734,6 +1840,10 @@ class PaxosManager:
         """This tick's inbox on the device, and the device app's descriptor
         columns ``reg`` uploaded with it."""
         self._drain_staged()
+        # pinned staging: the last inbox's uploads must have read it
+        for ev in self._uploaded:
+            ev.synchronize()
+        self._uploaded = []
         # lazily clear last tick's placements instead of reallocating R*P*G
         req, stp = self._in_req, self._in_stp
         for _row, take in self._placed:
@@ -1781,6 +1891,8 @@ class PaxosManager:
         # the liveness view this inbox carries (journaled by the WAL from
         # the host copy: the device copy is never read back)
         self._inbox_alive = self.alive.copy()
+        if self._res is not None:
+            return self._upload_shards(req, stp), reg
         # device copies: the staging buffers are mutated next tick
         dev, dt = self.device, self._dt
         t_up = dt.start()
@@ -1791,6 +1903,44 @@ class PaxosManager:
             reg = tuple(torch.from_numpy(c).to(dev) for c in reg)
         dt.stop("upload", t_up)
         return inbox, reg
+
+    def _upload_shards(self, req, stp) -> dict:
+        """Each mesh shard's ``[R/rs, P, G/gs]`` inbox block on its
+        device, one contiguous row of the staging at a time (no host
+        copy), on the device's stream, timed as the shard's "upload";
+        ``alive`` goes whole to every shard.  From pinned staging (a CUDA
+        mesh) the copies do not block the host."""
+        mesh = self.mesh
+        rl, gl = self.R // mesh.replica_shards, self._res.rows_per_shard
+        pinned = self._staging_pinned is not None
+        alive = torch.from_numpy(self._inbox_alive)
+        if pinned:
+            alive = alive.pin_memory()
+        srcs = (torch.from_numpy(req), torch.from_numpy(stp))
+        out = {}
+        for k in mesh.shards():
+            ri, gi = k
+            dev, timers = mesh.device_at(ri, gi), self._dts[k]
+            t_up = timers.start()
+            blk = []
+            for src in srcs:
+                dst = torch.empty((rl, self.P, gl), dtype=src.dtype,
+                                  device=dev)
+                for r in range(rl):
+                    for p in range(self.P):
+                        dst[r, p].copy_(
+                            src[ri * rl + r, p, gi * gl:(gi + 1) * gl],
+                            non_blocking=pinned)
+                blk.append(dst)
+            out[k] = TickInbox(blk[0], blk[1],
+                               alive.to(dev, non_blocking=pinned,
+                                        copy=True))
+            timers.stop("upload", t_up)
+            if pinned and dev.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                self._uploaded.append(ev)
+        return out
 
     def _place_bulk(self, req, stp, placed) -> None:
         """Vectorized placement of the bulk queue into the staging arrays:
@@ -1990,23 +2140,18 @@ class PaxosManager:
                     self.state, self.kv, inbox, *reg, -1,
                     self._exec_budget, self._lag_budget)
             lease_pack = health_pack = None
-        elif self.mesh is not None:
-            # one body a shard (parallel/shard_tick); leases, health and
-            # register planes are refused with a mesh
+        elif self._res is not None:
+            # one body a shard (parallel/shard_tick) on its resident block
+            # and its inbox block, each on its device; ``packed`` holds the
+            # shards' outboxes.  Leases, health and register planes are
+            # refused with a mesh
             with serial_on_cpu(self.device):
-                if self._mesh_tick is not None:
-                    self.state, out_g = self._mesh_tick(self.state, inbox)
-                    packed = pack_outbox_impl(out_g)
-                elif self._demand_dev is not None:
-                    # placement: the demand EWMA folds decided_now after
-                    # the shards, in the dispatch that compacts
-                    self.state, packed, self._demand_dev = (
-                        self._mesh_tick_compact(self.state, inbox,
-                                                self._demand_dev))
-                    self._placement.adopt_device(self._demand_dev)
-                else:
-                    self.state, packed = self._mesh_tick_compact(
-                        self.state, inbox)
+                self._res.blocks, packed, demand = self._mesh_tick(
+                    self._res.blocks, inbox, self._demand_dev, self._dts)
+            if demand is not None:
+                # placement: each column folded its decided_now
+                self._demand_dev = demand
+                self._placement.adopt_device(demand)
             lease_pack = health_pack = None
         elif self._demand_dev is not None:
             # placement on one device: the intake-demand EWMA folds inside
@@ -2046,8 +2191,11 @@ class PaxosManager:
         if self.rstate is None and done_at % self._sweep_every == 0 and (
             self.outstanding or (self.bulk is not None and self.bulk.n_live)
         ):
-            frontier = self._frontier_gather(sweep_frontier(
-                self.state.exec_slot, self.state.member, inbox.alive))
+            frontier = (self._frontier_gather_mesh(inbox)
+                        if self._res is not None else
+                        self._frontier_gather(sweep_frontier(
+                            self.state.exec_slot, self.state.member,
+                            inbox.alive)))
         dt.stop("tick", t_tick)
         if self._obs_block:
             # opt-in exact device step: costs the pipeline overlap
@@ -2055,7 +2203,10 @@ class PaxosManager:
             pc.mark(_BLOCKING_PHASE)
         # the outbox starts for the host now, behind this tick's work;
         # completion waits for the copy alone, not for later ticks' kernels
-        packed = self._outcopy.start(packed)
+        if self._res is not None:
+            packed = self._start_shard_copies(packed)
+        else:
+            packed = self._outcopy.start(packed)
         pc.mark("dispatch")
         if self.wal is not None:
             self.wal.log_inbox(self.tick_num, self._inbox_alive)
@@ -2087,6 +2238,16 @@ class PaxosManager:
         pc.end()
         return out
 
+    def _start_shard_copies(self, packed: dict) -> dict:
+        """Start each mesh shard's outbox copy through its own copier."""
+        return {k: self._outcopies[k].start(flat)
+                for k, flat in packed.items()}
+
+    def _land_shard_copies(self, packed: dict) -> dict:
+        """The shards' host buffers of one tick (see
+        ``parallel.shard_tick.join_compact`` / ``join_full``)."""
+        return {k: self._outcopies[k].land(h) for k, h in packed.items()}
+
     def _complete_tick(self, packed, placed: list, bulk_placed=None,
                        frontier=None, lease_pack=None, health_pack=None,
                        tick=None):
@@ -2103,15 +2264,25 @@ class PaxosManager:
         # outside tick(), and cross-call idle time must not land in "tally"
         pc.touch(tick)
         # the host buffers are written again two ticks on: the outbox this
-        # returns owns its arrays (the mixed planes' merge copies anyway)
-        packed = self._outcopy.land(packed)
-        self._dt.poll()
+        # returns owns its arrays (the mixed planes' merge and the mesh's
+        # join copy anyway)
+        if self._res is not None:
+            packed = self._land_shard_copies(packed)
+            for dt in self._dts.values():
+                dt.poll()
+        else:
+            packed = self._outcopy.land(packed)
+            self._dt.poll()
         if lease_pack is not None:
             self._adopt_lease_pack(lease_pack)
         if health_pack is not None:
             self._adopt_health_pack(health_pack)
         if self._use_compact:
-            if isinstance(packed, tuple):
+            if self._res is not None:
+                out = _stk.join_compact(packed, self.mesh, self.R, self.W,
+                                        self.G, self._exec_budget,
+                                        self._lag_budget)
+            elif isinstance(packed, tuple):
                 out = merge_compact_outbox(
                     unpack_compact(packed[0], self.R, self.G,
                                    self._exec_budget, self._lag_budget),
@@ -2133,7 +2304,10 @@ class PaxosManager:
             pc.mark("tally")
             self._process_compact(out, placed, bulk_placed, e_resp, e_miss)
         else:
-            if isinstance(packed, tuple):
+            if self._res is not None:
+                out = _stk.join_full(packed, self.mesh, self.R, self.P,
+                                     self.W, self.G)
+            elif isinstance(packed, tuple):
                 # the register plane is W=1 over G_reg columns; its exec
                 # lanes are zero-padded up to W in the merge
                 out = merge_outbox(
@@ -2534,6 +2708,35 @@ class PaxosManager:
         """Dispatch-time half of the frontier sweep: the rows holding live
         records and the O(rows) gather of the frontier at those rows, padded
         to a power-of-two bucket (results stay on the device)."""
+        urows = self._frontier_rows()
+        if urows is None:
+            return None
+        am, bs, lv = frontier_rows(*fr, _pad_rows(urows))
+        return urows, am, bs, lv
+
+    def _frontier_gather_mesh(self, inboxes):
+        """:meth:`_frontier_gather` on a mesh: each shard column computes
+        its frontier and gathers it at its own rows, on its device; the
+        results are ``(count, tensor)`` lists in column order."""
+        urows = self._frontier_rows()
+        if urows is None:
+            return None
+        gs, per = self.shard_geometry()
+        cuts = np.searchsorted(urows, np.arange(gs + 1) * per)
+        parts = ([], [], [])
+        for gi in range(gs):
+            loc = urows[cuts[gi]:cuts[gi + 1]] - gi * per
+            if not len(loc):
+                continue
+            with self._res.column(gi, write=False) as col:
+                fr = sweep_frontier(col.exec_slot, col.member,
+                                    inboxes[(0, gi)].alive)
+            for acc, t in zip(parts, frontier_rows(*fr, _pad_rows(loc))):
+                acc.append((len(loc), t))
+        return (urows,) + parts
+
+    def _frontier_rows(self):
+        """The rows holding live records, sorted, or None."""
         s = self.bulk
         rows_parts = []
         if s is not None and s.n_live:
@@ -2546,22 +2749,15 @@ class PaxosManager:
                 np.int32, len(self.outstanding)))
         if not rows_parts:
             return None
-        urows = np.unique(np.concatenate(rows_parts)
-                          if len(rows_parts) > 1 else rows_parts[0])
-        k = max(16, 1 << int(len(urows) - 1).bit_length())
-        padded = np.zeros(k, np.int32)
-        padded[:len(urows)] = urows
-        am, bs, lv = frontier_rows(*fr, padded)
-        return urows, am, bs, lv
+        return np.unique(np.concatenate(rows_parts)
+                         if len(rows_parts) > 1 else rows_parts[0])
 
     def _sweep_with_frontier(self, frontier) -> None:
         """O(records) sweep off the device control summary gathered at
         dispatch (see :meth:`_frontier_gather`).  A record whose row is
         missing from that gather is kept for the next sweep."""
         urows, am, bs, lv = frontier
-        amin = am.cpu().numpy()[:len(urows)]
-        base = bs.cpu().numpy()[:len(urows)]
-        live = lv.cpu().numpy()[:len(urows)]
+        amin, base, live = (_frontier_np(x, len(urows)) for x in (am, bs, lv))
         s = self.bulk
         if s is not None and s.n_live:
             cand = np.nonzero(s.valid & s.responded & (s.slot >= 0))[0]
@@ -2624,8 +2820,8 @@ class PaxosManager:
         # register value, so the same transfer covers both planes
         ckpt = self.apps[donor].checkpoint(name)
         donor_exec = int(exec_slot[donor])
-        pst, prow = self._plane_state(row)
-        donor_status = int(pst.status[donor, prow])
+        with self._owning(row, write=False) as (pst, prow):
+            donor_status = int(pst.status[donor, prow])
         if self.wal is not None:
             self.wal.log_sync(r, name, int(donor), donor_exec, donor_status,
                               ckpt)

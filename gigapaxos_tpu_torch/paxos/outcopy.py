@@ -33,10 +33,12 @@ class OutboxCopier:
     """Two host buffers a tuple position and the copy stream of one
     manager's outbox.  Arrays handed out by :meth:`land` stay valid until
     the :meth:`start` after next.  A CUDA copy is timed on the copy stream
-    into ``tick_device_seconds{driver=,plane=,part="copy"}``."""
+    into ``tick_device_seconds{driver=,plane=,part="copy"}``, with
+    ``labels`` (a mesh shard's ``shard``) beside them."""
 
-    def __init__(self, driver: str, plane: str):
+    def __init__(self, driver: str, plane: str, **labels):
         self._labels = (driver, plane)
+        self._extra = labels
         self._ring = ([], [])  # per turn: (tensor, ndarray) a position
         self._events = None    # per turn: (ready, landed)
         self._turn = 0
@@ -87,5 +89,5 @@ class OutboxCopier:
             self._events = tuple((torch.cuda.Event(), torch.cuda.Event())
                                  for _ in range(2))
             self._timers = device_timers(*self._labels, ("copy",), dev,
-                                         stream=self._stream)
+                                         stream=self._stream, **self._extra)
         return self._stream

@@ -7,8 +7,9 @@ Two intake paths feed one facade:
   so the EWMA fold runs on the device and the demand array (a float32
   ``[G]`` tensor on the plane's device) stays there; the host pulls a
   snapshot only every ``sample_every_ticks`` ticks.  The mesh path folds
-  ``decided_now`` (``d' = decay*d + decided_now``) after the shards, in
-  the global view (``parallel/shard_tick.py``); the single-device path
+  ``decided_now`` (``d' = decay*d + decided_now``) in each shard column's
+  body, one ``[G/gs]`` block on each column's device
+  (``parallel/shard_tick.py``); the single-device path
   folds the per-row intake (``sum(intake_taken)``, what a host popcount of
   ``taken_bits`` gives) inside the scripted tick program
   (``ops.tick.paxos_tick_compact_demand``).
@@ -65,7 +66,8 @@ class PlacementCounters:
 
     # ---------------------------------------------------------- device fold
     def adopt_device(self, device_demand) -> None:
-        """Track the device-resident demand array (fold ran on device)."""
+        """Track the device-resident demand array (fold ran on device; a
+        mesh's list of its columns' blocks)."""
         self.device_demand = device_demand
         self.ticks_observed += 1
         self._since_sample += 1
@@ -77,9 +79,13 @@ class PlacementCounters:
         """Pull the device demand to host (one transfer per sample window)."""
         if self.device_demand is not None:
             # a copy: on the CPU .numpy() is a view of the device tensor,
-            # and move_row/observe_intake write into the host mirror
-            self.demand = self.device_demand.detach().cpu().numpy().astype(
-                np.float32, copy=True)
+            # and move_row/observe_intake write into the host mirror.  A
+            # mesh hands one block a shard column, in row order
+            dd = self.device_demand
+            parts = dd if isinstance(dd, (list, tuple)) else (dd,)
+            self.demand = np.concatenate(
+                [p.detach().cpu().numpy() for p in parts]).astype(
+                    np.float32, copy=True)
         self._since_sample = 0
         return self.demand
 

@@ -58,6 +58,22 @@ class RowAllocator:
         self._row_to_name[row] = name
         return row
 
+    def alloc_many(self, names: list) -> list:
+        """:meth:`alloc` of each of ``names`` in turn, in the default pool,
+        in bulk: the same rows in the same order.  ``names`` are distinct
+        and none is allocated."""
+        if not self._name_to_row.keys().isdisjoint(names):
+            raise KeyError("a name is already allocated")
+        pool, n = self._free, len(names)
+        if n > len(pool):
+            raise MemoryError(
+                f"group table full ({self.split}); raise paxos.max_groups")
+        rows = pool[len(pool) - n:][::-1]
+        del pool[len(pool) - n:]
+        self._name_to_row.update(zip(names, rows))
+        self._row_to_name.update(zip(rows, names))
+        return rows
+
     def alloc_at(self, name: str, row: int) -> int:
         """Allocate a given free row (targeted placement).  The caller
         journals the row (WAL ``OP_CREATE_AT``), so replay repeats the same

@@ -673,15 +673,20 @@ class PaxosLogger:
 
     def checkpoint(self) -> str:
         """Write a full snapshot and roll the journal; GC superseded files."""
-        from ..paxos.state import to_host
+        from ..paxos.state import PaxosState, to_host
 
         t_ckpt = time.perf_counter()
         m = self.manager
         self._sync()
         new_seq = m.tick_num
         path = self._snapshot_path(new_seq)
-        # host COPIES (a CPU tensor's .numpy() is a view of live state)
-        state_np = {f: to_host(getattr(m.state, f)) for f in m.state._fields}
+        # host COPIES (a CPU tensor's .numpy() is a view of live state); a
+        # mesh manager's fields are joined on the host from its shards
+        if getattr(m, "_res", None) is not None:
+            state_np = {f: m._res.field_host(f) for f in PaxosState._fields}
+        else:
+            state_np = {f: to_host(getattr(m.state, f))
+                        for f in m.state._fields}
         # (the chain manager snapshots through this method too: it has only
         # its state)
         if getattr(m, "rstate", None) is not None:
@@ -1556,8 +1561,8 @@ def _restore_snapshot(m, meta, arrs) -> None:
     from ..paxos.manager import RequestRecord
     from ..paxos.state import PaxosState, state_from_numpy, to_host
 
-    m.state = state_from_numpy([arrs[f] for f in PaxosState._fields],
-                               device=m.device)
+    m.load_state(state_from_numpy([arrs[f] for f in PaxosState._fields],
+                                  device=m.device))
     if m.rstate is not None and any(k.startswith("reg_")
                                     for k in arrs.files):
         m.rstate = state_from_numpy(
@@ -1582,9 +1587,11 @@ def _restore_snapshot(m, meta, arrs) -> None:
     # _host_exec at zero would disable the sweep's passed-branch until
     # every member executes again post-recovery
     m._host_exec = m._dev_exec_np().astype(np.int32)
-    planes = [m.state] + ([m.rstate] if m.rstate is not None else [])
-    m._member_np = np.hstack([to_host(p.member) for p in planes])
-    m._n_members_np = np.hstack([to_host(p.n_members) for p in planes])
+    rplane = [m.rstate] if m.rstate is not None else []
+    m._member_np = np.hstack([m._field_np("member")]
+                             + [to_host(p.member) for p in rplane])
+    m._n_members_np = np.hstack([m._field_np("n_members")]
+                                + [to_host(p.n_members) for p in rplane])
     m.tick_num = meta["tick_num"]
     m._next_rid = meta["next_rid"]
     m.rows.restore(meta["rows"], meta.get("free_rows"))
@@ -1767,6 +1774,32 @@ def recover(cfg, n_replicas: int, apps, log_dir: str, native: bool = True,
             m._process_compact(co, m._placed, bulk_placed, er, em)
 
         m._replay_process = _proc
+        mode = "reference"
+    elif m._res is not None:
+        # a mesh replays record at a time through its own sharded tick on
+        # the resident blocks (the batched arm's scan is a one-device
+        # program): each record's inbox is cut on the host into the
+        # shards' blocks, and the shards' packed outboxes are joined on
+        # the host; only the exec budget's rank blocks cross devices
+        from ..ops.tick import _host
+        from ..parallel import shard_tick as _stk
+        from ..parallel.mesh import shard_inbox
+
+        mesh_tick = _stk.make_resident_tick(
+            m.mesh, -1, m._exec_budget if m._use_compact else 0, 0,
+            pack=True)
+
+        def build_inbox(bufs, alive):
+            return shard_inbox(TickInbox(
+                torch.from_numpy(bufs[0]), torch.from_numpy(bufs[1]),
+                torch.as_tensor(np.array(alive, bool))), m.mesh)
+
+        def tick_host(state, inboxes):
+            m._res.blocks, flats, _ = mesh_tick(m._res.blocks, inboxes)
+            return state, _stk.join_full(
+                {k: _host(f) for k, f in flats.items()}, m.mesh, m.R, m.P,
+                m.W, m.G)
+
         mode = "reference"
     if progress is None:
         progress = ReplayProgress(log_dir)

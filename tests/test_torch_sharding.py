@@ -222,6 +222,12 @@ STACK_W = 4
 STACK_GROUPS = 8
 
 
+def _whole_state(m):
+    """The manager's whole state: the port's mesh manager gathers its
+    shards' blocks (``gather_state``); the reference's keeps one."""
+    return m.gather_state() if hasattr(m, "gather_state") else m.state
+
+
 def _run_stack(P, tmpdir, R, mesh_devices=0, replica_shards=1,
                compact=True):
     """``tests/test_sharding_stack.py``'s scripted workload through one
@@ -260,7 +266,7 @@ def _run_stack(P, tmpdir, R, mesh_devices=0, replica_shards=1,
         m.tick()
     m.drain_pipeline()
     state = [np.array(f.cpu().numpy() if isinstance(f, torch.Tensor)
-                      else np.asarray(f)) for f in m.state]
+                      else np.asarray(f)) for f in _whole_state(m)]
     dbs = [{k: dict(v) for k, v in a.db.items()} for a in apps]
     stats = {k: m.stats[k] for k in ("decisions", "executions",
                                      "checkpoint_transfers")}
@@ -336,7 +342,7 @@ def _repair_workload(P, tmpdir, donor_sel, R, mesh_devices, rs):
         m.tick()
     m.drain_pipeline()
     state = [np.array(f.cpu().numpy() if isinstance(f, torch.Tensor)
-                      else np.asarray(f)) for f in m.state]
+                      else np.asarray(f)) for f in _whole_state(m)]
     dbs = [{k: dict(v) for k, v in a.db.items()} for a in apps]
     m.wal.close()
     syncs = []
