@@ -15,7 +15,10 @@ the kernels are built for sm_90a).  It
    equality).  It times each case with CUDA events, with the L2 cache
    flushed before every timed launch: one fused launch, one launch per
    array, the plain version and, for the gather, ``torch.gather`` per
-   array (a yardstick the port never calls);
+   array (a yardstick the port never calls).  It holds the Mode A inbox
+   scatter (``gp_scatter_inbox``) against its plain version at the
+   one-card cells' inbox (R=3, P=4, G=2^20) with ~2,800 and 100,000
+   placements, and times it beside the bare ``index_put_``;
 3. tick phase: the fused tick at R=3, W=8, P=4, G=2^20 with bench.py's
    load (one fresh request per group per tick), compact outbox; checks the
    kernel launch counts, that every taken request executes exactly once
@@ -408,21 +411,32 @@ def edge_cases(torch, pg, dev):
     return n
 
 
-def launches_now(pg, path: str, want: dict) -> dict:
+def launches_now(pg, path: str, want: dict, placing=None) -> dict:
     """Read the launch counts of one main-path run (set to 0 just before
-    it) and hold them to ``want``."""
+    it) and hold them to ``want``; with them, as ``scatter_inbox``, its
+    inbox scatters: one a one-device Mode A manager tick that places
+    anything, so never more than its match launches, and ``placing`` where
+    the path counted its placing ticks."""
     got = dict(pg.launches)
     check(got == want, f"{path}: launches {got}, expected {want}")
-    return got
+    n = pg.scatter_launches
+    check(n <= want["match_planes"], f"{path}: {n} inbox scatters, more "
+          f"than its {want['match_planes']} manager ticks")
+    check(placing is None or n == placing,
+          f"{path}: {n} inbox scatters, expected {placing} (one a tick "
+          "that places)")
+    return {**got, "scatter_inbox": n}
 
 
-def path_launches(pg, path: str, n_ticks: int, planes: int = 1) -> dict:
+def path_launches(pg, path: str, n_ticks: int, planes: int = 1,
+                  placing=None) -> dict:
     """The launch check of a Paxos path: every tick of every state plane
     launches 5 gathers (one per set of arrays that share an index) and 1
     match; a mixed tick has two planes."""
     return launches_now(pg, f"{path} phase, {n_ticks} ticks of {planes} "
                         "plane(s)", {"gather_planes": 5 * planes * n_ticks,
-                                     "match_planes": planes * n_ticks})
+                                     "match_planes": planes * n_ticks},
+                        placing)
 
 
 #: (R, W, G, P, label prefix) of the shapes the other paths give the
@@ -571,7 +585,72 @@ def kernels_phase(torch, pg, dev, R, W, P, G, bw):
               f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
               f"bound_ms={bound:.4f} share={bound / ms:.2f} "
               f"({nbytes / 1e6:.1f} MB)", flush=True)
+    rows += scatter_rows(torch, pg, dev, bw, flush)
     del flush
+    return rows
+
+
+#: (placements, label) of the inbox scatter's cases at the one-card cells'
+#: inbox: counter open's ~2,800 a tick (90,000 req/s, a ~31 ms turn) and
+#: 100,000, the closed cells' window placed at once
+SCATTER_CASES = ((2_800, "upload [3,4,2^20] n=2,800: "),
+                 (100_000, "upload [3,4,2^20] n=100,000: "))
+
+
+def scatter_rows(torch, pg, dev, bw, flush, R=3, P=4, G=1 << 20):
+    """``gp_scatter_inbox`` against its plain version
+    (``scatter_inbox_plain``) into a zeroed ``[R, P, G]`` inbox, exact,
+    at each of ``SCATTER_CASES`` (distinct slots, 1% stops), timed beside
+    the plain version and the bare library call (``index_put_`` of
+    prepared int64 indices and bool stops).  Its byte bound: the 12 bytes
+    a placement read and the 5 it scatters."""
+    rows = []
+    shape, total = (R, P, G), R * P * G
+    gen = torch.Generator(device="cpu").manual_seed(2718)
+    for n, label in SCATTER_CASES:
+        what = f"scatter_inbox {label}"
+        idx = torch.randperm(total, generator=gen)[:n].to(torch.int32)
+        rid = torch.randint(1, 2**31 - 1, (n,), generator=gen,
+                            dtype=torch.int32)
+        stop = (torch.rand(n, generator=gen) < 0.01).to(torch.int32)
+        idx, rid, stop = idx.to(dev), rid.to(dev), stop.to(dev)
+        got = (torch.zeros(shape, dtype=torch.int32, device=dev),
+               torch.zeros(shape, dtype=torch.bool, device=dev))
+        want = (torch.zeros_like(got[0]), torch.zeros_like(got[1]))
+        pg.scatter_inbox_cuda(idx, rid, stop, *got)
+        pg.scatter_inbox_plain(idx, rid, stop, *want)
+        torch.cuda.synchronize()
+        err = int((got[0].to(torch.int64) - want[0].to(torch.int64))
+                  .abs().max())
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{what}: kernel != plain (max abs err {err})")
+        check(int((got[0] != 0).sum()) == n
+              and int(got[1].sum()) == int(stop.sum()),
+              f"{what}: not {n} placements")
+        i64, on = idx.to(torch.int64), stop != 0
+
+        def library():
+            want[0].view(-1).index_put_((i64,), rid)
+            want[1].view(-1).index_put_((i64,), on)
+
+        ms = time_ms(torch, lambda: pg.scatter_inbox_cuda(idx, rid, stop,
+                                                          *got),
+                     reps=25, flush=flush)
+        plain_ms = time_ms(torch, lambda: pg.scatter_inbox_plain(
+            idx, rid, stop, *want), reps=25, flush=flush)
+        lib_ms = time_ms(torch, library, reps=25, flush=flush)
+        nbytes = 17 * n
+        bound = nbytes / bw * 1e3
+        rows.append({
+            "name": "scatter_inbox", "case": label, "set": "upload",
+            "arrays": 3, "max_abs_err": err, "ms": ms, "k_launch_ms": None,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
+            "bound_ms": bound, "bound_share": bound / ms, "bound_by": "bytes",
+        })
+        print(f"kernel scatter_inbox {label:34s} equal=True err={err} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={bound:.6f} share={bound / ms:.4f} "
+              f"({nbytes / 1e6:.3f} MB)", flush=True)
     return rows
 
 
@@ -746,6 +825,11 @@ def manager_phase(torch, dev, R, W, G, ticks):
             np.add.at(acks[k][1], offsets, 1)
         return sink
 
+    placing = 0  # ticks whose inbox held a placement (one scatter each)
+
+    def placed():
+        return bool(m._placed) or m._bulk_placed is not None
+
     t0 = time.perf_counter()
     admitted = 0
     for t in range(ticks):
@@ -755,6 +839,7 @@ def manager_phase(torch, dev, R, W, G, ticks):
         acks[k][0] = rids
         admitted += int((rids >= 0).sum())
         m.tick()
+        placing += placed()
     m.drain_pipeline()
     elapsed = time.perf_counter() - t0
     decided = m.stats["decisions"]
@@ -762,6 +847,7 @@ def manager_phase(torch, dev, R, W, G, ticks):
     drain = 0
     while True:
         m.tick()
+        placing += placed()
         m.drain_pipeline()
         drain += 1
         if not m.bulk_stats()["queued"] and not m.bulk.n_live:
@@ -781,7 +867,7 @@ def manager_phase(torch, dev, R, W, G, ticks):
     check(np.array_equal(apps[0].acc[rows], per_row),
           "app state does not match the acked writes per group")
     return {"G": G, "R": R, "W": W, "ticks": ticks, "drain_ticks": drain,
-            "ticks_total": ticks + drain,
+            "ticks_total": ticks + drain, "placing_ticks": placing,
             "admitted": admitted, "acked": int(per_row.sum()),
             "dec_per_s": decided / elapsed,
             "ms_per_tick": elapsed / ticks * 1e3,
@@ -5095,7 +5181,8 @@ def main(argv=None) -> int:
         pg.reset_launches()
         mgr = manager_phase(torch, dev, R, W, 1 << 17, ticks=30)
         launches["manager"] = path_launches(pg, "manager",
-                                            mgr["ticks_total"])
+                                            mgr["ticks_total"],
+                                            placing=mgr["placing_ticks"])
         print("manager " + json.dumps(mgr), flush=True)
         print("kv " + json.dumps({"groups": kv_leg(torch, dev, R, W)}),
               flush=True)
@@ -5217,26 +5304,36 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # the inbox scatter replaces no TPU kernel: the JAX package uploads the
+    # dense inbox whole
     replaces = {
         "gather_planes": "gigapaxos_tpu/ops/pallas_gather.py:41",
         "match_planes": "gigapaxos_tpu/ops/pallas_gather.py:108",
+        "scatter_inbox": None,
     }
+    # launches: the north-star tick run, whose shapes the times are taken
+    # at; for the scatter the manager run (the tick run's inboxes are made
+    # on the card); launches_by_path: each main path's own run (None where
+    # the counts come from other processes or leave the scatter out)
+    counted_in = {"gather_planes": "tick", "match_planes": "tick",
+                  "scatter_inbox": "manager"}
     kernels = []
-    for name in ("gather_planes", "match_planes"):
+    for name in ("gather_planes", "match_planes", "scatter_inbox"):
         mine = [r for r in rows if r["name"] == name]
         # the JSON row of a kernel is its largest launch on the tick's path
         head = max((r for r in mine if r["set"]), key=lambda r: r["bytes"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "gigapaxos_tpu_torch/csrc/plane_gather.cu",
-            # launches: the north-star tick run, whose shapes the times
-            # are taken at; launches_by_path: each main path's own run
-            "replaces": replaces[name], "launches": launches["tick"][name],
-            "launches_by_path": {p: n[name] for p, n in launches.items()},
+            "replaces": replaces[name],
+            "launches": launches[counted_in[name]][name],
+            "launches_by_path": {p: n.get(name)
+                                 for p, n in launches.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            # the gather's yardstick: one torch.gather per array of the set
+            # the yardsticks: one torch.gather per array of the gather's
+            # set; index_put_ of the scatter's placements
             "library_ms": head["library_ms"], "case": head["case"],
             "cases": [{k: r[k] for k in ("case", "arrays", "ms",
                                          "k_launch_ms", "plain_ms",

@@ -13,6 +13,10 @@
 //     else 0, the highest e winning on duplicate keys;   k < K <= 4
 // the tick's intake select, one launch per tick for its two vals arrays.
 //
+// gp_scatter_inbox replaces no TPU kernel (the JAX package uploads the
+// dense [R, P, G] inbox whole); it builds the Mode A inbox on the card
+// from one tick's placements (see its section below).
+//
 // What bounds them: both are selects with little arithmetic, so
 // device-memory bytes do.  At the tick's shape (R=3, W=8, P=4, G=2^20) the
 // five gather sets move 2,970 MB and the match 189 MB per tick when every
@@ -401,6 +405,30 @@ unsigned grid_of(int64_t g) {
                                (int64_t{kV} * kThreads));
 }
 
+// ------------------------------------------------------ inbox scatter
+
+// One tick's placements into a zeroed inbox: req[idx[i]] = rid[i] and
+// stp[idx[i]] = stop[i] != 0 for i < n, idx the flat slot
+// (entry * P + p) * G + row.  The host copies 12 bytes a placement instead
+// of the dense staging (5 bytes a slot, 63 MB at R=3, P=4, G=2^20, nearly
+// all zeros).  What bounds it: 12n coalesced bytes read and n scattered
+// 4- and 1-byte stores, microseconds at the thousands of placements a
+// tick carries; the memset of the zeroed inbox before it moves more.  One
+// thread a placement: a tick places each slot at most once, so no two
+// stores meet.  Every index lies in [0, total): the uploader checks the
+// packed columns on the host, where its plain version would raise.
+__global__ void __launch_bounds__(kThreads)
+scatter_inbox_kernel(const int32_t* __restrict__ idx,
+                     const int32_t* __restrict__ rid,
+                     const int32_t* __restrict__ stop, int64_t n,
+                     int32_t* __restrict__ req, uint8_t* __restrict__ stp) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int32_t f = __ldg(idx + i);
+  req[f] = __ldg(rid + i);
+  stp[f] = __ldg(stop + i) != 0 ? 1 : 0;
+}
+
 }  // namespace
 
 // Return codes: 0 = launched; > 0 = the cudaError_t of the launch;
@@ -478,5 +506,18 @@ extern "C" int gp_match_planes(const void* const* vals, void* const* out,
     match_planes_kernel<2><<<grid_of(g), kThreads, 0, s>>>(a);
   else
     match_planes_kernel<4><<<grid_of(g), kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gp_scatter_inbox(const void* idx, const void* rid,
+                                const void* stop, int64_t n, void* req,
+                                void* stp, int64_t total, void* stream) {
+  if (n < 1 || total < 1 || total > INT32_MAX) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  scatter_inbox_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(rid),
+      static_cast<const int32_t*>(stop), n, static_cast<int32_t*>(req),
+      static_cast<uint8_t*>(stp));
   return static_cast<int>(cudaGetLastError());
 }

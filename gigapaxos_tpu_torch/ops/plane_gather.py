@@ -1,5 +1,5 @@
-"""The two plane-select kernels of the tick: wrappers, plain versions and
-launch counters.
+"""The two plane-select kernels of the tick and the Mode A inbox scatter:
+wrappers, plain versions and launch counters.
 
 Counterpart of the reference's ``ops/pallas_gather.py``.  The kernels are
 hand-written CUDA C++ for Hopper (``csrc/plane_gather.cu``, built by
@@ -11,7 +11,11 @@ hand-written CUDA C++ for Hopper (``csrc/plane_gather.cu``, built by
 * :func:`match_planes_many_cuda` — ``out_k[j, g] = vals_k[e, g]`` for the
   ``e`` with ``keys[e, g] == idx[j, g]`` (highest ``e`` wins), else 0, for
   up to 4 vals arrays that share keys and index: the intake key-match
-  select (1 launch per tick).
+  select (1 launch per tick);
+* :func:`scatter_inbox_cuda` — ``req.view(-1)[idx[i]] = rid[i]``,
+  ``stp.view(-1)[idx[i]] = stop[i] != 0``: one tick's placements into a
+  zeroed Mode A inbox (``paxos/inupload.py``; 1 launch per tick that
+  places anything), counted in :data:`scatter_launches`.
 
 :func:`gather_planes_cuda` and :func:`match_planes_cuda` are their one-array
 case.  ``ops/window.py`` dispatches on the tensor's device: CPU tensors go
@@ -34,6 +38,8 @@ from . import cuda_build
 
 #: kernel launches since the last :func:`reset_launches` (CUDA path only)
 launches = {"gather_planes": 0, "match_planes": 0}
+#: inbox scatter launches since the last :func:`reset_launches`
+scatter_launches = 0
 #: the planes of one cluster tick on threads of their own
 _launches_lock = threading.Lock()
 
@@ -52,9 +58,11 @@ MAX_LANES = (2**31 - 1) // MAX_PLANES
 
 
 def reset_launches() -> None:
+    global scatter_launches
     with _launches_lock:
         for k in launches:
             launches[k] = 0
+        scatter_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,6 +78,8 @@ def _lib():
     lib.gp_match_planes.argtypes = [pp, pp, ip, i32, p, p, i32, i32, i64,
                                     i32, p]
     lib.gp_match_planes.restype = i32
+    lib.gp_scatter_inbox.argtypes = [p, p, p, i64, p, p, i64, p]
+    lib.gp_scatter_inbox.restype = i32
     return lib
 
 
@@ -308,3 +318,55 @@ def match_planes_cuda(vals: torch.Tensor, keys: torch.Tensor,
                       idx: torch.Tensor) -> torch.Tensor:
     """The one-array case of :func:`match_planes_many_cuda`."""
     return match_planes_many_cuda((vals,), keys, idx)[0]
+
+
+# ----------------------------------------------------------- scatter_inbox
+
+def scatter_inbox_plain(idx: torch.Tensor, rid: torch.Tensor,
+                        stop: torch.Tensor, req: torch.Tensor,
+                        stp: torch.Tensor) -> None:
+    """Plain version: ``index_put_`` of ``rid`` into ``req`` and of
+    ``stop != 0`` into ``stp`` at the flat slots ``idx``, in place."""
+    i = idx.to(torch.int64)
+    req.view(-1).index_put_((i,), rid)
+    stp.view(-1).index_put_((i,), stop != 0)
+
+
+def scatter_inbox_cuda(idx: torch.Tensor, rid: torch.Tensor,
+                       stop: torch.Tensor, req: torch.Tensor,
+                       stp: torch.Tensor) -> None:
+    """Launch ``gp_scatter_inbox`` on ``req``'s device: the same writes as
+    :func:`scatter_inbox_plain`, for 1-D int32 ``idx``, ``rid`` and
+    ``stop`` of one length and a contiguous int32 ``req`` and bool ``stp``
+    of one shape with fewer than 2^31 slots.  Placements must name each
+    slot at most once, and lie in ``[0, req.numel())``: the kernel does
+    not check (the uploader does, on the host)."""
+    global scatter_launches
+    dev = req.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels need CUDA tensors, got {dev}")
+    _check(req, "req", dev, (torch.int32,))
+    _check(stp, "stp", dev, (torch.bool,))
+    if stp.shape != req.shape:
+        raise ValueError(f"stp has shape {tuple(stp.shape)}, req "
+                         f"{tuple(req.shape)}")
+    n = idx.numel()
+    for name, t in (("idx", idx), ("rid", rid), ("stop", stop)):
+        _check(t, name, dev, (torch.int32,))
+        if t.dim() != 1 or t.numel() != n:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; the "
+                             f"placements are [{n}]")
+    total = req.numel()
+    if total >= 2**31:
+        raise ValueError(f"{total} inbox slots; the kernel takes < 2^31")
+    if n == 0:
+        return
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().gp_scatter_inbox(idx.data_ptr(), rid.data_ptr(),
+                                     stop.data_ptr(), n, req.data_ptr(),
+                                     stp.data_ptr(), total, stream)
+    if rc != 0:
+        raise RuntimeError(f"gp_scatter_inbox launch failed (code {rc})")
+    with _launches_lock:
+        scatter_launches += 1

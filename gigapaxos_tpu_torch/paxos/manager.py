@@ -85,6 +85,7 @@ from ..utils.locking import ContendedLock, locked as _locked
 from ..utils.reqtrace import tracer as _reqtrace
 from . import state as st
 from .bulkstore import BulkStore
+from .inupload import InboxUploader
 from .outcopy import OutboxCopier
 from .paystore import PayloadStore
 
@@ -431,6 +432,7 @@ class PaxosManager:
         self._bulk_chunks: list = []  # FIFO of staged rid arrays
         self._bulk_leftover = np.zeros(0, np.int64)  # queued, not yet placed
         self._bulk_placed = None  # (rids, entries, ps, rows) of last tick
+        self._bulk_stops = None  # the stop flags beside _bulk_placed
         #: the last completed tick's compacted laggard table (rep, row,
         #: donor, donor exec, donor status, laggard exec)
         z0 = np.zeros(0, np.int64)
@@ -477,10 +479,14 @@ class PaxosManager:
         #: journal replays: the compact fold and the tick's kv_reg upload
         self._replay_process = None
         self._replay_kv_reg = None
-        # inbox staging buffers; entries placed last tick are zeroed
-        # lazily at the next build
-        self._in_req = np.zeros((self.R, self.P, self.G_total), np.int32)
-        self._in_stp = np.zeros((self.R, self.P, self.G_total), bool)
+        # a mesh's dense inbox staging, which each shard's upload cuts
+        # (None on one device); entries placed last tick are zeroed lazily
+        # at the next build
+        inbox = (self.R, self.P, self.G_total)
+        self._in_req = self._in_stp = None
+        if self.mesh is not None:
+            self._in_req = np.zeros(inbox, np.int32)
+            self._in_stp = np.zeros(inbox, bool)
         self._inbox_alive = self.alive.copy()  # liveness of the last inbox
         self._placed: list = []
         #: pipelined mode: the last dispatched tick, completed at the start
@@ -517,6 +523,10 @@ class PaxosManager:
         #: for these events (the uploads' ends) before writing the staging
         self._staging_pinned = None
         self._uploaded: list = []
+        #: one device: each tick's placements packed into a ring of host
+        #: buffers (pinned on CUDA) and scattered into a zeroed inbox there
+        self._inup = (InboxUploader("modea", spill_ns, inbox, self.device)
+                      if self.mesh is None else None)
         if self.mesh is not None:
             for i, k in enumerate(self.mesh.shards()):
                 dev = self.mesh.device_at(*k)
@@ -527,10 +537,8 @@ class PaxosManager:
                                                   shard=str(i))
             if any(d.type == "cuda" for d in self.mesh.devices):
                 self._staging_pinned = (
-                    torch.zeros(self._in_req.shape, dtype=torch.int32,
-                                pin_memory=True),
-                    torch.zeros(self._in_stp.shape, dtype=torch.bool,
-                                pin_memory=True))
+                    torch.zeros(inbox, dtype=torch.int32, pin_memory=True),
+                    torch.zeros(inbox, dtype=torch.bool, pin_memory=True))
                 self._in_req = self._staging_pinned[0].numpy()
                 self._in_stp = self._staging_pinned[1].numpy()
         #: a bulk request's wait from admission to placement ("queue") and
@@ -1749,8 +1757,10 @@ class PaxosManager:
 
     def _take_kv_uploads(self):
         """Pull up to kv_reg_budget staged descriptors for this tick's
-        fused upload; advances the placement watermark.  Returns padded
-        [K] arrays (rid 0 = empty slot)."""
+        fused upload; advances the placement watermark.  Returns the four
+        taken [o] int32 columns (rids, ops, keys, values), which the
+        upload pads to [kv_reg_budget] on the device (rid 0 = empty
+        slot)."""
         K = self._kv_reg_budget
         take, total = [], 0
         while self._kv_chunks and total < K:
@@ -1764,19 +1774,14 @@ class PaxosManager:
                 take.append(tuple(a[:room] for a in c))
                 self._kv_chunks[0] = tuple(a[room:] for a in c)
                 total += room
-        cols = [np.zeros(K, np.int32) for _ in range(4)]
-        o = 0
-        for c in take:
-            n = len(c[0])
-            for dst, a in zip(cols, c):
-                dst[o:o + n] = a
-            o += n
-        if o:
-            self._kv_watermark = max(self._kv_watermark,
-                                     int(cols[0][:o].max()))
-        self._kv_uploaded = (tuple(a[:o].copy() for a in cols) if o
-                             else None)
-        return tuple(cols)
+        if not take:
+            self._kv_uploaded = None
+            return tuple(np.zeros(0, np.int32) for _ in range(4))
+        cols = tuple(np.concatenate([c[i] for c in take]).astype(
+            np.int32, copy=False) for i in range(4))
+        self._kv_watermark = max(self._kv_watermark, int(cols[0].max()))
+        self._kv_uploaded = cols
+        return cols
 
     def bulk_response(self, rid: int):
         """Response payload of an entry-replica-completed bulk request;
@@ -1844,18 +1849,21 @@ class PaxosManager:
         for ev in self._uploaded:
             ev.synchronize()
         self._uploaded = []
-        # lazily clear last tick's placements instead of reallocating R*P*G
+        # a mesh: lazily clear last tick's placements from the staging
+        # instead of reallocating R*P*G
         req, stp = self._in_req, self._in_stp
-        for _row, take in self._placed:
-            for _rid, entry, p in take:
-                req[entry, p, _row] = 0
-                stp[entry, p, _row] = False
-        if self._bulk_placed is not None:
-            _r, _e, _p, _rw = self._bulk_placed
-            req[_e, _p, _rw] = 0
-            stp[_e, _p, _rw] = False
-            self._bulk_placed = None
-        placed = []
+        if req is not None:
+            for _row, take in self._placed:
+                for _rid, entry, p in take:
+                    req[entry, p, _row] = 0
+                    stp[entry, p, _row] = False
+            if self._bulk_placed is not None:
+                _r, _e, _p, _rw = self._bulk_placed
+                req[_e, _p, _rw] = 0
+                stp[_e, _p, _rw] = False
+        self._bulk_placed = None
+        placed, slow = [], []
+        P, Gt = self.P, self.G_total
         for row, q in self._queues.items():
             used = collections.Counter()
             take = []
@@ -1879,9 +1887,11 @@ class PaxosManager:
                     q.appendleft(rid)
                     break
                 used[entry] += 1
-                req[entry, p, row] = rid
-                stp[entry, p, row] = rec.stop
+                if req is not None:
+                    req[entry, p, row] = rid
+                    stp[entry, p, row] = rec.stop
                 take.append((rid, entry, p))
+                slow.append(((entry * P + p) * Gt + row, rid, rec.stop))
                 if self.reqtrace.enabled:
                     self.reqtrace.event(rid, "placed", tick=self.tick_num)
             if take:
@@ -1893,16 +1903,32 @@ class PaxosManager:
         self._inbox_alive = self.alive.copy()
         if self._res is not None:
             return self._upload_shards(req, stp), reg
-        # device copies: the staging buffers are mutated next tick
-        dev, dt = self.device, self._dt
-        t_up = dt.start()
-        inbox = TickInbox(torch.from_numpy(req).to(dev, copy=True),
-                          torch.from_numpy(stp).to(dev, copy=True),
-                          torch.from_numpy(self._inbox_alive).to(dev))
+        return self._upload_inbox(slow, reg)
+
+    def _upload_inbox(self, slow: list, reg):
+        """This tick's placements (``slow``: (flat slot, rid, stop) of the
+        slow path; the bulk path's from ``_bulk_placed``), the liveness
+        view and the descriptor columns ``reg``, packed into the next host
+        buffer of ``_inup`` and uploaded: the device inbox holds exactly
+        this tick's placements, and ``reg`` comes back padded to
+        [kv_reg_budget]."""
+        bp = self._bulk_placed
+        ns, nb = len(slow), 0 if bp is None else len(bp[0])
+        v = self._inup.stage(ns + nb, 0 if reg is None else len(reg[0]))
+        if ns:
+            s = np.array(slow, np.int64)
+            v.flat[:ns], v.rid[:ns], v.stop[:ns] = s[:, 0], s[:, 1], s[:, 2]
+        if nb:
+            rids, e, p, rows = bp
+            v.flat[ns:] = ((e.astype(np.int64) * self.P + p) * self.G_total
+                           + rows)
+            v.rid[ns:] = rids
+            v.stop[ns:] = self._bulk_stops
+        v.alive[:] = self._inbox_alive
         if reg is not None:
-            reg = tuple(torch.from_numpy(c).to(dev) for c in reg)
-        dt.stop("upload", t_up)
-        return inbox, reg
+            v.desc[:] = reg
+        return self._inup.send(
+            self._dt, None if reg is None else self._kv_reg_budget)
 
     def _upload_shards(self, req, stp) -> dict:
         """Each mesh shard's ``[R/rs, P, G/gs]`` inbox block on its
@@ -1943,7 +1969,8 @@ class PaxosManager:
         return out
 
     def _place_bulk(self, req, stp, placed) -> None:
-        """Vectorized placement of the bulk queue into the staging arrays:
+        """Vectorized placement of the bulk queue (into ``_bulk_placed``,
+        and a mesh's staging arrays ``req``/``stp``, None on one device):
         up to P first-occurrence passes per (entry, row) key; the remainder
         stays queued in arrival order."""
         if not self._bulk_chunks and not self._bulk_leftover.size:
@@ -2025,8 +2052,10 @@ class PaxosManager:
         fit = (p >= 0) & (p < self.P)
         if fit.any():
             fe, fp, fr, fi = entries[fit], p[fit], rows[fit], idx[fit]
-            req[fe, fp, fr] = q[fit].astype(np.int32)
-            stp[fe, fp, fr] = store.stop[fi]
+            self._bulk_stops = store.stop[fi]
+            if req is not None:
+                req[fe, fp, fr] = q[fit].astype(np.int32)
+                stp[fe, fp, fr] = self._bulk_stops
             self._bulk_placed = (q[fit], fe, fp, fr)
             self._observe_wait("queue", fi)
         rest = q[~fit]
